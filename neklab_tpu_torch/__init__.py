@@ -9,7 +9,9 @@ imports torch, numpy and scipy, never jax.
 
 Field layout is the reference's element-last `[..., s, r, nel]` at every
 public function. The device is chosen once, by `box_mesh(..., device=)` (or
-`mesh_from_arrays`); every later tensor follows the mesh's device.
+`build_mesh`, `mesh_from_arrays`), and every later tensor follows the mesh's
+device. It defaults to the current CUDA card; without a card the mesh
+builders raise unless the caller passes `device="cpu"`.
 """
 
 import torch

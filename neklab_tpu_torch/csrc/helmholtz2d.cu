@@ -12,104 +12,208 @@
 // shaped for the TPU's matrix unit (n^2 flops per point); here each 1-D
 // contraction costs n per point.
 //
-// Bound: device memory traffic. A call reads u, g00, g01, g11, bm1 and
-// writes out: 6 n^2 nel words per component (geometry is re-read per batch
-// entry, from L2 after the first). At the box2d 131k case (nel = 1024,
-// n = 8, f32) that is about 1.6 MB per call, so a single call is
-// launch-latency-bound on an H100. The design keeps the four intermediates
-// (u_r, u_s, w_r, w_s) out of device memory: u and the two fluxes live in
-// shared memory, u_r/u_s in registers, and D sits in shared memory.
+// Bound: device memory traffic. A call reads u ([B, n, n, nel]), g00, g01,
+// g11, bm1 and D once and writes out: (2B + 4) n^2 nel + n^2 words, for
+// (8n + 10) B n^2 nel flops. At the velocity CG's [2, 9, 9, 120] f32 that is
+// 311 KB (0.093 us at 3.35 TB/s) against 1.6 MFLOP (0.024 us at 67 TFLOP/s
+// f32); box2d's [2, 8, 8, 1024] f32 moves 2.1 MB (0.63 us). Calls this small
+// never stream at the memory's rate: their time is set by how many SMs take
+// part and by the length of each thread's chain of dependent loads and sums.
 //
-// Layout: contiguous element-last [B, n, n, nel]. Consecutive threads map
-// to consecutive elements (threadIdx.x), so every global load and store is
-// coalesced; threadIdx.y strides over the n^2 points of the element. One
-// block handles TE consecutive elements; gridDim.y indexes the leading
-// batch B. The ragged last tile is masked here, not padded by the caller.
+// The first design gave one thread per element, which walked its n^2 points
+// in series, 32 elements to a block, the batch on gridDim.y and the geometry
+// re-read for every batch entry: 8 blocks at [2, 9, 9, 120], 16.3 us there
+// (0.6 % of the bound) and 11.8 us at [2, 8, 8, 1024] (5 %).
+//
+// This design works over (element, point):
+//  * One thread per (element, point). A block takes TE consecutive elements
+//    times all n^2 points: threadIdx.x is the element in the tile,
+//    threadIdx.y the point. Consecutive threads take consecutive elements at
+//    one point, so every global access is coalesced in the element-last
+//    layout (TE = 8 in f32 reads whole 32-byte sectors). The ragged last
+//    tile is masked here, not padded by the caller.
+//  * Each thread keeps its point's g00, g01, g11 and h2 * bm1 in registers
+//    and loops over a chunk of the leading batch inside the block, so a block
+//    reads the geometry once. The tile narrows, and the batch is cut into
+//    chunks over gridDim.y, as far as it takes to spread the call over the
+//    SMs (launch_n).
+//  * Per batch entry: u into shared memory; sync; the thread's u_r, u_s and
+//    w_r, w_s (n-term sums over shared memory), w_r and w_s into shared
+//    memory; sync; the transposed sums and the mass term, straight to device
+//    memory. The next entry's u is loaded into a register while the sums run.
+//  * n is a template parameter (2..12), so the sums unroll and (s, r) comes
+//    from a constant divisor. D sits in shared memory; the threads of a warp
+//    share at most 32 / TE points, so its reads are broadcasts.
+//  * No tensor cores: f32 products on them would be TF32, which the port
+//    forbids, and the contractions are only n <= 12 long. TMA and wgmma do not
+//    pay for ~300 KB a call.
+//
+// The kernel counts its own runs: one thread of block (0, 0) adds one to a
+// 64-bit counter in device memory, so runs replayed from a CUDA graph count.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TE = 32;     // elements per block (one warp across elements)
-constexpr int TY = 8;      // thread rows striding over points
-constexpr int NMAX = 12;   // largest n = order + 1 the wrapper admits
+// Largest tile: at most 1024 threads (TE * n^2) to a block.
+template <int N>
+constexpr int max_tile() { return 8 * N * N <= 1024 ? 8 : 4; }
 
-template <typename T>
-__global__ void __launch_bounds__(TE * TY)
+template <typename T, int N>
+__global__ void __launch_bounds__(max_tile<N>() * N * N)
 helmholtz2d_kernel(const T* __restrict__ u, const T* __restrict__ d,
                    const T* __restrict__ g00, const T* __restrict__ g01,
                    const T* __restrict__ g11, const T* __restrict__ bm1,
-                   T* __restrict__ out, int nel, int n, T h1, T h2) {
+                   T* __restrict__ out, int batch, int chunk, int nel, T h1, T h2,
+                   unsigned long long* __restrict__ runs) {
+  constexpr int NP = N * N;
   extern __shared__ unsigned char smem_raw[];
-  T* sd = reinterpret_cast<T*>(smem_raw);  // [n*n]       D, row-major
-  T* su = sd + n * n;                      // [n*n][TE]   u
-  T* swr = su + n * n * TE;                // [n*n][TE]   w_r
-  T* sws = swr + n * n * TE;               // [n*n][TE]   w_s
+  const int te = blockDim.x;
+  T* sd = reinterpret_cast<T*>(smem_raw);  // [NP]      D, row-major
+  T* su = sd + NP;                         // [NP][te]  u
+  T* swr = su + NP * te;                   // [NP][te]  w_r
+  T* sws = swr + NP * te;                  // [NP][te]  w_s
 
-  const int npts = n * n;
   const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int e = blockIdx.x * TE + tx;
+  const int p = threadIdx.y;
+  const int s = p / N, r = p - s * N;
+  const int me = p * te + tx;
+  const int e = blockIdx.x * te + tx;
   const bool valid = e < nel;
-  const long long boff = (long long)blockIdx.y * npts * nel;
+  const long long gi = (long long)p * nel + e;
+  const long long entry = (long long)NP * nel;
+  const int b0 = blockIdx.y * chunk;
+  const int b1 = min(b0 + chunk, batch);
 
-  for (int i = ty * TE + tx; i < npts; i += TE * TY) sd[i] = d[i];
-  for (int p = ty; p < npts; p += TY)
-    su[p * TE + tx] = valid ? u[boff + (long long)p * nel + e] : T(0);
-  __syncthreads();
+  if (me == 0 && blockIdx.x == 0 && blockIdx.y == 0) atomicAdd(runs, 1ULL);
+  if (me < NP) sd[me] = d[me];
 
-  // reference gradients and metric fluxes
-  for (int p = ty; p < npts; p += TY) {
-    const int s = p / n, r = p - s * n;
+  T a00 = 0, a01 = 0, a11 = 0, mass = 0, unext = 0;
+  if (valid) {
+    a00 = g00[gi];
+    a01 = g01[gi];
+    a11 = g11[gi];
+    mass = h2 * bm1[gi];
+    unext = u[b0 * entry + gi];
+  }
+
+  for (int b = b0; b < b1; ++b) {
+    const T uv = unext;
+    su[me] = uv;
+    __syncthreads();
+    if (valid && b + 1 < b1) unext = u[(b + 1) * entry + gi];
+
+    // reference gradients and metric fluxes
     T ur = 0, us = 0;
-    for (int j = 0; j < n; ++j) {
-      ur += sd[r * n + j] * su[(s * n + j) * TE + tx];
-      us += sd[s * n + j] * su[(j * n + r) * TE + tx];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      ur += sd[r * N + j] * su[(s * N + j) * te + tx];
+      us += sd[s * N + j] * su[(j * N + r) * te + tx];
     }
-    T a00 = 0, a01 = 0, a11 = 0;
-    if (valid) {
-      const long long gi = (long long)p * nel + e;
-      a00 = g00[gi];
-      a01 = g01[gi];
-      a11 = g11[gi];
-    }
-    swr[p * TE + tx] = a00 * ur + a01 * us;
-    sws[p * TE + tx] = a01 * ur + a11 * us;
-  }
-  __syncthreads();
+    swr[me] = a00 * ur + a01 * us;
+    sws[me] = a01 * ur + a11 * us;
+    __syncthreads();
 
-  // transpose contractions + mass term
-  if (!valid) return;
-  for (int p = ty; p < npts; p += TY) {
-    const int s = p / n, r = p - s * n;
+    // transposed contractions + mass term. The next entry may overwrite su
+    // and then swr/sws only after every thread has passed this entry's
+    // second sync and, for swr/sws, the next entry's first one.
     T acc = 0;
-    for (int i = 0; i < n; ++i) {
-      acc += sd[i * n + r] * swr[(s * n + i) * TE + tx];
-      acc += sd[i * n + s] * sws[(i * n + r) * TE + tx];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      acc += sd[i * N + r] * swr[(s * N + i) * te + tx];
+      acc += sd[i * N + s] * sws[(i * N + r) * te + tx];
     }
-    const long long gi = (long long)p * nel + e;
-    out[boff + gi] = h1 * acc + h2 * bm1[gi] * su[p * TE + tx];
+    if (valid) out[b * entry + gi] = h1 * acc + mass * uv;
   }
+}
+
+// The card's SM count, read once.
+cudaError_t num_sms(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
+// tile = chunk = 0 lets the launcher choose. Fewer, larger blocks read the
+// geometry fewer times; more blocks put more SMs to work, and a long loop
+// over the batch inside a block serializes. It starts from the largest tile
+// with the whole batch in each block; while the grid holds fewer blocks than
+// a quarter of the SMs, it halves the tile down to 4 elements (16 bytes a
+// point in f32), then the batch chunk; then it halves the chunk further
+// while the grid still fits on the SMs or the chunk is longer than 8. That
+// gives (4, 1) at [2, 9, 9, 120], (8, 2) at [2, 8, 8, 1024], (4, 6) at
+// [81, 9, 9, 120] and (8, 8) at [64, 8, 8, 1024]: the fastest, or within
+// 3 % of it, of the tiles chip_smoke.py times at those shapes.
+template <typename T, int N>
+int launch_n(const T* u, const T* d, const T* g00, const T* g01, const T* g11,
+             const T* bm1, T* out, int batch, int nel, double h1, double h2, int tile,
+             int chunk, unsigned long long* runs, cudaStream_t stream) {
+  constexpr int NP = N * N;
+  auto blocks = [&](int te, int ch) {
+    return (long long)((nel + te - 1) / te) * ((batch + ch - 1) / ch);
+  };
+  if (tile == 0 && chunk == 0) {
+    int sms = 0;
+    const cudaError_t err = num_sms(&sms);
+    if (err != cudaSuccess) return (int)err;
+    tile = max_tile<N>();
+    chunk = batch;
+    while (blocks(tile, chunk) < sms / 4) {
+      if (tile > 4)
+        tile /= 2;
+      else if (chunk > 1)
+        chunk = (chunk + 1) / 2;
+      else
+        break;
+    }
+    while (chunk > 8 || (chunk > 1 && blocks(tile, (chunk + 1) / 2) <= sms))
+      chunk = (chunk + 1) / 2;
+  }
+  if (tile < 1 || tile > max_tile<N>()) return (int)cudaErrorInvalidValue;
+  const int tiles = (nel + tile - 1) / tile;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = (batch + chunk - 1) / chunk;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * (size_t)(NP + 3 * NP * tile);  // <= 24.2 KB
+  dim3 grid(tiles, chunks);
+  dim3 block(tile, NP);
+  helmholtz2d_kernel<T, N><<<grid, block, smem, stream>>>(
+      u, d, g00, g01, g11, bm1, out, batch, chunk, nel, (T)h1, (T)h2, runs);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* u, const T* d, const T* g00, const T* g01, const T* g11,
-           const T* bm1, T* out, int batch, int nel, int n, double h1,
-           double h2, void* stream) {
-  if (n < 2 || n > NMAX || nel < 1 || batch < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * (size_t)(n * n + 3 * n * n * TE);
-  static size_t smem_set = 0;  // per instantiation: opt-in above 48 KB once
-  if (smem > 48 * 1024 && smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        helmholtz2d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
+           const T* bm1, T* out, int batch, int nel, int n, double h1, double h2,
+           int tile, int chunk, unsigned long long* runs, void* stream) {
+  if (nel < 1 || batch < 1 || runs == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define NEKLAB_HELMHOLTZ_CASE(NN) \
+  case NN:                        \
+    return launch_n<T, NN>(u, d, g00, g01, g11, bm1, out, batch, nel, h1, h2, tile, chunk, runs, st);
+  switch (n) {  // n = order + 1 = 2..12, as the wrapper admits
+    NEKLAB_HELMHOLTZ_CASE(2)
+    NEKLAB_HELMHOLTZ_CASE(3)
+    NEKLAB_HELMHOLTZ_CASE(4)
+    NEKLAB_HELMHOLTZ_CASE(5)
+    NEKLAB_HELMHOLTZ_CASE(6)
+    NEKLAB_HELMHOLTZ_CASE(7)
+    NEKLAB_HELMHOLTZ_CASE(8)
+    NEKLAB_HELMHOLTZ_CASE(9)
+    NEKLAB_HELMHOLTZ_CASE(10)
+    NEKLAB_HELMHOLTZ_CASE(11)
+    NEKLAB_HELMHOLTZ_CASE(12)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((nel + TE - 1) / TE, batch);
-  dim3 block(TE, TY);
-  helmholtz2d_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
-      u, d, g00, g01, g11, bm1, out, nel, n, (T)h1, (T)h2);
-  return (int)cudaGetLastError();
+#undef NEKLAB_HELMHOLTZ_CASE
 }
 
 }  // namespace
@@ -119,15 +223,17 @@ extern "C" {
 int helmholtz2d_f32(const float* u, const float* d, const float* g00,
                     const float* g01, const float* g11, const float* bm1,
                     float* out, int batch, int nel, int n, double h1, double h2,
-                    void* stream) {
-  return launch<float>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, stream);
+                    int tile, int chunk, unsigned long long* runs, void* stream) {
+  return launch<float>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, tile, chunk,
+                       runs, stream);
 }
 
 int helmholtz2d_f64(const double* u, const double* d, const double* g00,
                     const double* g01, const double* g11, const double* bm1,
                     double* out, int batch, int nel, int n, double h1, double h2,
-                    void* stream) {
-  return launch<double>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, stream);
+                    int tile, int chunk, unsigned long long* runs, void* stream) {
+  return launch<double>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, tile, chunk,
+                        runs, stream);
 }
 
 }  // extern "C"

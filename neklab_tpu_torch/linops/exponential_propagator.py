@@ -15,7 +15,7 @@ import torch
 
 from ..krylov.linop import LinearOperator
 from ..mesh.core import SemMesh
-from ..models.linearized import LinConfig, pressure_solvers, propagate
+from ..models.linearized import LinConfig, pressure_solvers, propagate, velocity_solvers
 from ..models.navier_stokes import _BDF, helmholtz_diag
 from ..models.precond import build_e_preconditioner
 from ..utils.timestep import cfl_dt, clamp_cfl, horizon_steps
@@ -36,8 +36,9 @@ class ExponentialPropagator(LinearOperator):
         """The step is tau / ceil(tau / dt_cfl), dt_cfl from the CFL target
         against the base flow, so nsteps * dt == tau exactly. The pressure
         solves use the two-level E preconditioner and the exact
-        neighbor-block E apply; their solvers (on the card, each with its
-        captured CG graph) are built here once for every matvec."""
+        neighbor-block E apply. Every solver of the matvec, pressure,
+        velocity and scalar, one per BDF order (on the card each with its
+        captured CG graph), is built here once for every matvec."""
         self.mesh = mesh
         self.base_u = base_u
         self.base_theta = (
@@ -58,11 +59,14 @@ class ExponentialPropagator(LinearOperator):
             for i in range(fc.nscal)
         ] or None
         self.psolves = pressure_solvers(mesh, self.cfg, self.nsteps, self.pc_e)
+        self.vsolves = velocity_solvers(mesh, self.cfg, self.nsteps, self.vdiag, self.tdiags)
 
-    def matvec(self, x: dict) -> dict:
+    def matvec(self, x: dict, stats: dict | None = None) -> dict:
+        """stats: optional dict, filled as `propagate` fills it."""
         u, theta = propagate(
             self.mesh, self.cfg, self.base_u, self.base_theta, x["u"], x["theta"], self.nsteps,
             pc_e=self.pc_e, vdiag=self.vdiag, tdiags=self.tdiags, psolves=self.psolves,
+            vsolves=self.vsolves, stats=stats,
         )
         return {"u": u, "theta": theta}
 

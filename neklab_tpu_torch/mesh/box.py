@@ -22,7 +22,7 @@ import torch
 
 from ..ops.basis import make_basis
 from ..ops.geometry import compute_geom
-from .core import SemMesh, build_mesh
+from .core import SemMesh, build_mesh, resolve_device
 
 _FACES_2D = ("x-", "x+", "y-", "y+")
 _FACES_3D = _FACES_2D + ("z-", "z+")
@@ -54,8 +54,10 @@ def box_mesh(
     order: polynomial order p (n = p+1 GLL points per direction).
     edges: optional per-dim arrays of element edge coordinates (grading).
     deform: optional fn(x: [ndim, nel, ...]) -> deformed coords.
-    dtype, device: every mesh tensor is created with them.
+    dtype, device: every mesh tensor is created with them; device None is
+    the current CUDA card, and raises where there is none (pass "cpu").
     """
+    device = resolve_device(device)
     ndim = len(nels)
     n = order + 1
     nd = dealias_order + 1 if dealias_order is not None else None

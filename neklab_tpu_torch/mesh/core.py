@@ -92,6 +92,17 @@ class SemMesh:
         return dataclasses.replace(self, **moved)
 
 
+def resolve_device(device) -> torch.device:
+    """`device`, or the current CUDA card when it is None. The port runs on
+    the card unless the caller asks for the CPU: without a card, None raises
+    and never falls back."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to build the mesh on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def _dss_copies(gidx: np.ndarray) -> np.ndarray:
     """Gather table of the direct-stiffness sum: row i lists the flat
     positions of all copies of DOF gidx[i], padded with gidx.size."""
@@ -125,7 +136,9 @@ def build_mesh(
 
     Inputs use the builder's ELEMENT-FIRST layout ([.., nel, pts..]); the
     stored tensors are ELEMENT-LAST ([.., pts.., nel]). Same numpy
-    arithmetic as the reference builder (structured path)."""
+    arithmetic as the reference builder (structured path). device: None is
+    the current CUDA card (`resolve_device`)."""
+    device = resolve_device(device)
     nel = geom.x.shape[1]
     gidx = np.asarray(gidx, dtype=np.int64)
     nglob = int(gidx.max()) + 1
@@ -181,7 +194,9 @@ def mesh_from_arrays(arrays: dict, meta: dict, dtype=torch.float64, device=None)
     reference's element-last layouts (e.g. `np.asarray(jax_mesh.bm1)`).
     meta: {"n", "nd", "ndim", "nel", "nglob", "bc"} — the reference's static
     metadata (basis.n, basis.nd, ndim, nel, nglob, bc). This carries a mesh
-    the port cannot build itself yet (e.g. the annulus) across unchanged."""
+    the port cannot build itself yet (e.g. the annulus) across unchanged.
+    device: None is the current CUDA card (`resolve_device`)."""
+    device = resolve_device(device)
     missing = [k for k in MESH_FIELDS if k not in arrays]
     if missing:
         raise ValueError(f"mesh_from_arrays: missing fields {missing}")

@@ -22,7 +22,8 @@ import torch
 from ..mesh.core import SemMesh
 from ..ops import sem
 from . import stokes
-from .navier_stokes import _BDF, _EXT, FlowConfig, helmholtz_diag, helmholtz_solve, make_pressure_solver
+from .navier_stokes import (_BDF, _EXT, FlowConfig, helmholtz_diag, make_helmholtz_solver,
+                            make_pressure_solver)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,12 +110,15 @@ def step_lin(
     pc_e=None,
     conv_cache=None,
     psolve=None,
+    vsolve=None,
+    tsolves=None,
     stats=None,
 ) -> PertState:
     """One linearized BDF(order)/EXT(order) step (homogeneous BCs).
 
-    psolve: this order's pressure solver (`make_pressure_solver`), built
-    once by a caller that steps repeatedly; built here when None.
+    psolve, vsolve, tsolves: this order's pressure, velocity and scalar
+    solvers (`pressure_solvers`, `velocity_solvers`), built once by a caller
+    that steps repeatedly; built here when None (vsolve and tsolves together).
     stats: optional dict; the velocity and pressure CG iteration counts are
     appended to stats["helmholtz"] and stats["pressure"]."""
     fc = cfg.flow
@@ -130,13 +134,9 @@ def step_lin(
     bsum = betas[0] * state.u + betas[1] * state.ulag[0] + betas[2] * state.ulag[1]
     rhs = (fc.rho / dt) * mesh.bm1 * bsum + nstar + stokes.grad_weak_t(mesh, pstar)
 
-    h1 = fc.viscosity
-    h2 = fc.rho * g0 / dt
-    if vdiag is None:
-        vdiag = helmholtz_diag(mesh, h1, h2, mesh.vmask)
-    zero = torch.zeros_like(state.u)
-    ustar = helmholtz_solve(mesh, rhs, h1, h2, mesh.vmask, zero, fc.vtol, fc.vmaxit, vdiag,
-                            stats=stats)
+    if vsolve is None or tsolves is None:
+        vsolve, tsolves = _helmholtz_solvers(mesh, fc, order, vdiag, tdiags)
+    ustar = vsolve(rhs, torch.zeros_like(state.u), stats=stats)
 
     dt_over_g0 = dt / (g0 * fc.rho)
     if psolve is None:
@@ -153,13 +153,7 @@ def step_lin(
         comps = []
         for i in range(cfg.nscal):
             rhs_t = (1.0 / dt) * mesh.bm1 * tbsum[i] + ntstar[i]
-            k1 = fc.conductivity[i]
-            k2 = g0 / dt
-            tdiag = tdiags[i] if tdiags is not None else helmholtz_diag(mesh, k1, k2, mesh.tmask)
-            zt = torch.zeros_like(state.theta[i])
-            comps.append(
-                helmholtz_solve(mesh, rhs_t, k1, k2, mesh.tmask, zt, fc.ttol, fc.vmaxit, tdiag)
-            )
+            comps.append(tsolves[i](rhs_t, torch.zeros_like(state.theta[i])))
         theta_new = torch.stack(comps)
     else:
         theta_new = state.theta
@@ -188,16 +182,45 @@ def pressure_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, pc_e=None) -> d
     }
 
 
+def _helmholtz_solvers(mesh: SemMesh, fc: FlowConfig, order: int, vdiag, tdiags):
+    """(velocity solver, [scalar solvers]) of one BDF order. vdiag, tdiags:
+    the Jacobi diagonals (built here when None)."""
+    g0 = _BDF[order][0]
+    h2 = fc.rho * g0 / fc.dt
+    if vdiag is None:
+        vdiag = helmholtz_diag(mesh, fc.viscosity, h2, mesh.vmask)
+    vsolve = make_helmholtz_solver(mesh, fc.viscosity, h2, mesh.vmask, vdiag, fc.vtol,
+                                   fc.vmaxit)
+    tsolves = []
+    for i in range(fc.nscal):
+        k1, k2 = fc.conductivity[i], g0 / fc.dt
+        tdiag = tdiags[i] if tdiags is not None else helmholtz_diag(mesh, k1, k2, mesh.tmask)
+        tsolves.append(make_helmholtz_solver(mesh, k1, k2, mesh.tmask, tdiag, fc.ttol, fc.vmaxit))
+    return vsolve, tsolves
+
+
+def velocity_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, vdiag, tdiags) -> dict:
+    """{order: (velocity solver, [scalar solvers])} for the BDF orders
+    `propagate` steps with. h2 = rho g0 / dt changes with the order in the
+    ramp, so each order has its own solvers; vdiag and tdiags (the BDF3
+    Jacobi diagonals, or None) serve every order, as in the reference."""
+    fc = cfg.flow
+    tmax = min(fc.torder, 3)
+    return {order: _helmholtz_solvers(mesh, fc, order, vdiag, tdiags)
+            for order in range(1, min(nsteps, tmax) + 1)}
+
+
 def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nsteps: int,
-              pc_e=None, vdiag=None, tdiags=None, psolves=None, stats=None):
+              pc_e=None, vdiag=None, tdiags=None, psolves=None, vsolves=None, stats=None):
     """Linear map M: (u0, theta0) -> (u, theta) after nsteps of the
     linearized solver, with a BDF1/2/3 self-starting ramp and zero initial
     pressure — the exponential-propagator matvec exp(tau A), tau = nsteps*dt.
 
-    vdiag/tdiags: the BDF3 Jacobi diagonals, and psolves the pressure
-    solvers (`pressure_solvers`), built once by a caller that applies the
-    map repeatedly (the diagonals serve the ramp steps too). stats: as in
-    `step_lin`, one entry per step."""
+    vdiag/tdiags: the BDF3 Jacobi diagonals; psolves and vsolves: the
+    pressure solvers (`pressure_solvers`) and the velocity and scalar
+    solvers (`velocity_solvers`). A caller that applies the map repeatedly
+    builds them once (the diagonals serve the ramp steps too); they are
+    built here when None. stats: as in `step_lin`, one entry per step."""
     fc = cfg.flow
     state = pert_initial(mesh, cfg, u0, theta0)
     tmax = min(fc.torder, 3)
@@ -211,10 +234,13 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     ccache = sem.lin_convect_cache(mesh, base_u, base_theta if fc.nscal else None)
     if psolves is None:
         psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
+    if vsolves is None:
+        vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag3, tdiags3)
 
     for k in range(nsteps):
         order = min(k + 1, tmax)
+        vsolve, tsolves = vsolves[order]
         state = step_lin(mesh, cfg, state, base_u, base_theta, order=order, pc_e=pc_e,
-                         vdiag=vdiag3, tdiags=tdiags3, conv_cache=ccache, psolve=psolves[order],
-                         stats=stats)
+                         conv_cache=ccache, psolve=psolves[order], vsolve=vsolve,
+                         tsolves=tsolves, stats=stats)
     return state.u, state.theta

@@ -15,7 +15,7 @@ import torch
 from ..mesh.core import SemMesh
 from ..ops import sem
 from . import stokes
-from .solvers import PCG, local_diagonal, pcg_info
+from .solvers import PCG, local_diagonal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,34 +64,53 @@ def helmholtz_diag(mesh: SemMesh, h1, h2, mask) -> torch.Tensor:
     return mask * d + (1.0 - mask)
 
 
-def helmholtz_solve(mesh, rhs_weak, h1, h2, mask, bc_val, tol, maxiter, diag, stats=None):
-    """Solve (h1 A + h2 B) u = rhs with u = bc_val on Dirichlet DOFs.
+def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
+    """Returns u = solve(rhs_weak, bc_val, stats=None), which solves
+    (h1 A + h2 B) u = rhs with u = bc_val on Dirichlet DOFs at fixed h1, h2.
 
-    rhs_weak: unassembled local weak residual, any leading axes (components
-    solved jointly). The CG runs in the weighted local-copies
-    representation: with t = dssum(sqw * y),
+    rhs_weak: unassembled local weak residual shaped like `mask` (a leading
+    component axis is solved jointly). The CG runs in the weighted
+    local-copies representation: with t = dssum(sqw * y),
 
         op(y) = sqw * mask * (dssum(H_local(mask * t)) - t) + y,
 
     which is Euclidean-symmetric on the whole local space and acts as the
-    assembled masked Helmholtz operator on the consistent subspace.
-
-    stats: optional dict; the CG's iteration count is appended to
-    stats["helmholtz"]."""
+    assembled masked Helmholtz operator on the consistent subspace. Its
+    iteration is built once here and, on the card, captured as a CUDA graph
+    (`PCG`). stats: optional dict; each solve appends its CG's iteration
+    count to stats["helmholtz"]."""
     sqw = torch.sqrt(mesh.vmult)
     msq = mask * sqw
-    ub = (1.0 - mask) * bc_val
 
     def op(y):
         t = sem.dssum(mesh, sqw * y)
         hv = sem.dssum(mesh, sem.helmholtz_local(mesh, mask * t, h1, h2))
         return torch.addcmul(y, msq, hv - t)
 
-    b = mask * sqw * sem.dssum(mesh, rhs_weak - sem.helmholtz_local(mesh, ub, h1, h2))
-    y, k, _ = pcg_info(op, b, precond=lambda r: r / diag, tol=tol, maxiter=maxiter)
-    if stats is not None:
-        stats.setdefault("helmholtz", []).append(k)
-    return ub + mask * (y / sqw)
+    like = torch.zeros(torch.broadcast_shapes(mask.shape, diag.shape), dtype=mesh.dtype,
+                       device=mesh.device)
+    cg = PCG(op, like, precond=lambda r: r / diag)
+
+    def solve(rhs_weak, bc_val, stats=None):
+        ub = (1.0 - mask) * bc_val
+        b = msq * sem.dssum(mesh, rhs_weak - sem.helmholtz_local(mesh, ub, h1, h2))
+        if b.shape != like.shape:
+            raise ValueError(f"helmholtz solve: right-hand side {tuple(b.shape)}, the solver "
+                             f"was built for {tuple(like.shape)}")
+        y, k, _ = cg.solve(b, tol=tol, maxiter=maxiter)
+        if stats is not None:
+            stats.setdefault("helmholtz", []).append(k)
+        return ub + mask * (y / sqw)
+
+    return solve
+
+
+def helmholtz_solve(mesh, rhs_weak, h1, h2, mask, bc_val, tol, maxiter, diag, stats=None):
+    """Solve (h1 A + h2 B) u = rhs with u = bc_val on Dirichlet DOFs: one
+    solve of a `make_helmholtz_solver` built for it. A caller that solves
+    repeatedly builds the solver once instead."""
+    return make_helmholtz_solver(mesh, h1, h2, mask, diag, tol, maxiter)(rhs_weak, bc_val,
+                                                                         stats=stats)
 
 
 def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
@@ -118,7 +137,7 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
     def op(dp):
         return proj(e_apply(proj(dp)))
 
-    cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond, graph=True)
+    cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond)
 
     def solve(rhs, x0=None, stats=None):
         """x0: optional warm start (e.g. the previous step's increment),

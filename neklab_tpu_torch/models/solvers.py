@@ -6,16 +6,14 @@ one scalar back to the host (a device sync per iteration on the card); that
 keeps iteration counts identical to the reference's `lax.while_loop`.
 
 `PCG` keeps the iterates in fixed buffers and updates them in place, so that
-on the card one iteration can be captured once as a CUDA graph and replayed:
-one launch per iteration in place of ~35 host dispatches, which bound the
-step time (PERF.md). The pressure solver uses the graph; the velocity
-Helmholtz solve does not, because its Helmholtz kernel counts its launches
-in its wrapper, which a graph replay would bypass. The `graph` flag exists
-only for that split; a fused CG kernel (ROADMAP, section 2) is what removes
-it.
+on the card one iteration is captured once as a CUDA graph and replayed:
+one graph launch per iteration in place of ~35-40 host dispatches, which
+bound the step time (PERF.md). The velocity and pressure solvers both build
+their `PCG` once and replay it; the Helmholtz kernel counts its runs on the
+device, so the replays count too.
 
 The reference wraps its CG in `lax.custom_linear_solve` only so the solve
-can be transposed (exact discrete adjoints); the port calls `pcg` directly
+can be transposed (exact discrete adjoints); the port runs `PCG` directly
 until the adjoint is ported.
 """
 
@@ -32,18 +30,18 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class PCG:
     """Preconditioned CG for one operator and preconditioner, on buffers
-    shaped like `like`. With `graph=True` and a CUDA `like`, the iteration
-    is captured as a CUDA graph at construction and replayed by `solve`."""
+    shaped like `like`. With a CUDA `like`, the iteration is captured as a
+    CUDA graph at construction (after one warm-up run) and replayed by
+    `solve`; on the CPU it runs eagerly."""
 
-    def __init__(self, op: Callable, like: torch.Tensor, precond: Callable | None = None,
-                 graph: bool = False):
+    def __init__(self, op: Callable, like: torch.Tensor, precond: Callable | None = None):
         self.op = op
         self.precond = precond if precond is not None else (lambda r: r)
         # every buffer is set by `solve` before the first iteration reads it
         self.x, self.r, self.z, self.p = (torch.empty_like(like) for _ in range(4))
         self.rz, self.rr = (torch.empty((), dtype=like.dtype, device=like.device) for _ in range(2))
         self._step = self._iterate
-        if graph and like.is_cuda:
+        if like.is_cuda:
             # warm up on a side stream (lazy library set-up), then capture
             side = torch.cuda.Stream(like.device)
             side.wait_stream(torch.cuda.current_stream(like.device))
@@ -101,12 +99,6 @@ def pcg_info(
 
     Stops at ||r||_2 <= tol (absolute, Euclidean), Nek's residual-based rule."""
     return PCG(op, b, precond).solve(b, x0=x0, tol=tol, maxiter=maxiter)
-
-
-def pcg(op: Callable, b, precond: Callable | None = None, x0=None, tol: float = 1e-8,
-        maxiter: int = 500) -> torch.Tensor:
-    """Preconditioned CG; returns the solution only."""
-    return pcg_info(op, b, precond=precond, x0=x0, tol=tol, maxiter=maxiter)[0]
 
 
 def local_diagonal(op_local: Callable, shape, dtype, ndim_pts: int, device=None) -> torch.Tensor:

@@ -27,7 +27,8 @@ NVCC_FLAGS = [
 
 _lib = None
 # what the last build did: {"path", "seconds", "log"} (seconds = 0.0 when an
-# up-to-date library was already on disk)
+# up-to-date library was already on disk; the log is then the one nvcc wrote
+# when it built that library)
 last_build: dict = {}
 
 
@@ -57,7 +58,11 @@ def build() -> str:
     """Compile the kernel library if no up-to-date one exists; returns its path."""
     path = library_path()
     if os.path.exists(path):
-        last_build.update(path=path, seconds=0.0, log="")
+        log = ""
+        if os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                log = f.read()
+        last_build.update(path=path, seconds=0.0, log=log)
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
@@ -66,8 +71,12 @@ def build() -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{path}.log")
     os.replace(tmp, path)
-    last_build.update(path=path, seconds=time.time() - t0, log=proc.stdout + proc.stderr)
+    last_build.update(path=path, seconds=time.time() - t0, log=log)
     return path
 
 
@@ -79,7 +88,9 @@ def load() -> ctypes.CDLL:
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for name in ("helmholtz2d_f32", "helmholtz2d_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 7 + [i32, i32, i32, f64, f64, ptr]
+            # u, d, g00, g01, g11, bm1, out; batch, nel, n; h1, h2; tile,
+            # chunk; the run counter and the stream (pointers as c_void_p)
+            fn.argtypes = [ptr] * 7 + [i32, i32, i32, f64, f64, i32, i32, ptr, ptr]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -10,6 +10,11 @@ its design and what bounds it.
 `helmholtz2d` launches the kernel for CUDA tensors, always: a build or
 launch failure raises. It uses `helmholtz2d_plain` only because a tensor
 lies on the CPU.
+
+The kernel counts its own runs in a 64-bit counter in device memory, one
+per card, so a run replayed from a CUDA graph counts like a launch from the
+host. `launches` reads the counter and `reset_launches` zeroes it; the plain
+twin never counts.
 """
 
 from __future__ import annotations
@@ -19,10 +24,11 @@ import torch
 from .tensor import apply_r, apply_s
 
 NMAX = 12  # largest n = order + 1 the kernel takes
-_MAX_BATCH = 65535  # gridDim.y
 
-# Number of kernel launches in this process (never counts the plain twin).
-LAUNCHES = 0
+# device index -> int64 [1] run counter of the kernel on that card. Made at
+# the first launch on the card, outside any graph capture, and never freed:
+# captured launches keep its address.
+_RUNS: dict[int, torch.Tensor] = {}
 
 
 def helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2):
@@ -36,19 +42,22 @@ def helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2):
     return h1 * (apply_r(d.T, wr) + apply_s(d.T, ws)) + h2 * bm1 * u
 
 
-def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2):
+def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2, *, tile: tuple[int, int] | None = None):
     """Fused local Helmholtz apply on [..., n, n, nel] fields.
 
     CPU tensors: `helmholtz2d_plain`. CUDA tensors: the kernel, launched on
-    the current stream without synchronizing, into a fresh output."""
+    the current stream without synchronizing, into a fresh output.
+    tile: (elements per block, leading entries per block); None lets the
+    launcher choose from the shape and the card."""
     if u.device.type == "cpu":
         return helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2)
     _check(u, d, g00, g01, g11, bm1)
     from . import _build
 
-    global LAUNCHES
     n, nel = d.shape[0], u.shape[-1]
     batch = u.numel() // (n * n * nel)
+    te, chunk = tile if tile is not None else (0, 0)
+    runs = _counter(u.device)
     out = torch.empty_like(u)
     lib = _build.load()
     fn = lib.helmholtz2d_f32 if u.dtype == torch.float32 else lib.helmholtz2d_f64
@@ -56,11 +65,48 @@ def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), d.data_ptr(), g00.data_ptr(), g01.data_ptr(),
                  g11.data_ptr(), bm1.data_ptr(), out.data_ptr(),
-                 batch, nel, n, float(h1), float(h2), stream)
+                 batch, nel, n, float(h1), float(h2), te, chunk, runs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"helmholtz2d kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
     return out
+
+
+def _counter(device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    runs = _RUNS.get(index)
+    if runs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("helmholtz2d: the run counter of cuda:%d would be made inside a "
+                               "graph capture; launch the kernel once before capturing" % index)
+        runs = _RUNS[index] = torch.zeros(1, dtype=torch.int64, device=torch.device("cuda", index))
+    return runs
+
+
+def _counters(device) -> list[torch.Tensor]:
+    if device is None:
+        return list(_RUNS.values())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return []
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return [_RUNS[index]] if index in _RUNS else []
+
+
+def launches(device=None) -> int:
+    """Kernel runs on `device` (None: every card) since its counter was made
+    or last reset, graph replays included. Synchronizes the card; 0 for the
+    CPU and for a card the kernel never ran on."""
+    total = 0
+    for runs in _counters(device):
+        torch.cuda.synchronize(runs.device)
+        total += int(runs.item())
+    return total
+
+
+def reset_launches(device=None) -> None:
+    """Zero the run counter of `device` (None: every card)."""
+    for runs in _counters(device):
+        runs.zero_()
 
 
 def _check(u, d, g00, g01, g11, bm1) -> None:
@@ -84,5 +130,3 @@ def _check(u, d, g00, g01, g11, bm1) -> None:
     for name in ("g00", "g01", "g11", "bm1"):
         if tuple(tensors[name].shape) != geo:
             raise ValueError(f"helmholtz2d: {name} must be {geo}, got {tuple(tensors[name].shape)}")
-    if u.numel() // (n * n * u.shape[-1]) > _MAX_BATCH:
-        raise ValueError(f"helmholtz2d: more than {_MAX_BATCH} leading entries")

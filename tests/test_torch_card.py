@@ -1,6 +1,6 @@
-"""The port's code that runs only on the card: the CUDA kernels against
-their plain torch twins, and the CUDA-graph replay of the pressure CG
-against the same CG run eagerly.
+"""The port's code that runs only on the card: the CUDA kernel against its
+plain torch twin, its run counter in device memory, and the CG iterations
+captured as CUDA graphs against the same CG on CPU tensors.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -9,9 +9,10 @@ none (skipping the jax-only conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py -q
 
 Tolerances: kernel f64 to rel 1e-12 (the two differ only in summation
-order), f32 to rel 2e-5 (float32 summation order over ~2n terms per point);
-the graphed CG replays the very kernels the eager one launches, so its
-iterates agree to rel 1e-12 in f64 with the same iteration count.
+order), f32 to rel 2e-5 (float32 summation order over ~2n terms per point).
+The graphed CGs on the card and the eager ones on the CPU run the same
+arithmetic in another summation order: same iteration count, rel 1e-10 in
+f64.
 """
 
 import numpy as np
@@ -19,13 +20,19 @@ import pytest
 import torch
 
 from neklab_tpu_torch.mesh.box import box_mesh
+from neklab_tpu_torch.models import navier_stokes as ns
 from neklab_tpu_torch.models import stokes
 from neklab_tpu_torch.models.precond import build_e_preconditioner
 from neklab_tpu_torch.models.solvers import PCG
-from neklab_tpu_torch.ops import helmholtz_kernel
+from neklab_tpu_torch.ops import helmholtz_kernel, sem
 from torch_port_helpers import CHANNEL_BC, WALLED_BC, rel, wavy
 
 pytestmark = pytest.mark.cuda
+
+TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+CHANNEL = ((4, 5), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC)
+DT = 1e-2
+H1, H2 = 1.0 / 500, (11.0 / 6.0) / DT
 
 
 @pytest.fixture
@@ -35,22 +42,50 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-12), (torch.float32, 2e-5)])
-def test_helmholtz2d_kernel_matches_plain(card, dtype, tol):
-    """Ragged element tile (nel = 15 < 32), curved geometry (g01 != 0) and a
-    leading axis."""
+def random_args(n, nel, lead, dtype, device, seed=0):
+    """Kernel inputs from a numpy seed: u [*lead, n, n, nel], D, a positive
+    diagonal metric with a cross term, the mass, h1 and h2."""
+    rng = np.random.default_rng(seed)
+    cast = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    geo = (n, n, nel)
+    return (cast(rng.standard_normal(lead + geo)), cast(rng.standard_normal((n, n))),
+            cast(1 + rng.random(geo)), cast(0.3 * rng.standard_normal(geo)),
+            cast(1 + rng.random(geo)), cast(rng.random(geo)), 0.01, 3.7)
+
+
+# (n, nel, lead): the velocity CG and the probe of the main path, a ragged
+# last tile (nel = 15, 121), the smallest and largest n, batches of 1 and 81
+EDGE_CASES = [(9, 120, (2,)), (9, 120, (81,)), (6, 15, (2,)), (9, 121, (1,)),
+              (2, 15, (2,)), (12, 121, (2,)), (12, 15, (81,)), (8, 1024, ())]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, nel, lead", EDGE_CASES)
+def test_helmholtz2d_kernel_matches_plain(card, n, nel, lead, dtype):
+    args = random_args(n, nel, lead, dtype, card)
+    helmholtz_kernel.reset_launches(card)
+    out = helmholtz_kernel.helmholtz2d(*args)
+    assert helmholtz_kernel.launches(card) == 1
+    assert rel(out, helmholtz_kernel.helmholtz2d_plain(*args)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("tile", [(1, 1), (2, 1), (4, 2), (8, 81), (8, 5)])
+def test_helmholtz2d_every_tile_matches_plain(card, tile):
+    """Each (elements, leading entries) per block the launcher takes."""
+    args = random_args(9, 121, (81,), torch.float64, card)
+    out = helmholtz_kernel.helmholtz2d(*args, tile=tile)
+    assert rel(out, helmholtz_kernel.helmholtz2d_plain(*args)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_helmholtz2d_on_a_curved_mesh(card, dtype):
     mesh = box_mesh((5, 3), ((0.0, 2.0), (-1.0, 1.0)), WALLED_BC, order=5, deform=wavy,
                     dtype=dtype, device=card)
     g = mesh.g
-    gen = torch.Generator(device=card)
-    gen.manual_seed(0)
-    u = torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen, dtype=dtype, device=card)
+    u = torch.randn((2,) + tuple(mesh.bm1.shape), dtype=dtype, device=card)
     args = (mesh.d, g[0, 0], g[0, 1], g[1, 1], mesh.bm1, 0.01, 3.7)
-    before = helmholtz_kernel.LAUNCHES
-    out = helmholtz_kernel.helmholtz2d(u, *args)
-    torch.cuda.synchronize()
-    assert helmholtz_kernel.LAUNCHES == before + 1
-    assert rel(out, helmholtz_kernel.helmholtz2d_plain(u, *args)) <= tol
+    assert rel(helmholtz_kernel.helmholtz2d(u, *args),
+               helmholtz_kernel.helmholtz2d_plain(u, *args)) <= TOL[dtype]
 
 
 def test_helmholtz2d_rejects_what_the_kernel_does_not_take(card):
@@ -62,22 +97,71 @@ def test_helmholtz2d_rejects_what_the_kernel_does_not_take(card):
         helmholtz_kernel.helmholtz2d(u.transpose(0, 1).contiguous().transpose(0, 1), *args)
     with pytest.raises(ValueError):  # dtype mismatch with the geometry
         helmholtz_kernel.helmholtz2d(u.float(), *args)
+    with pytest.raises(RuntimeError):  # a tile wider than the launcher takes
+        helmholtz_kernel.helmholtz2d(u, *args, tile=(16, 1))
 
 
-def test_graphed_pressure_cg_matches_eager(card):
-    mesh = box_mesh((8, 4), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=card)
-    pc = build_e_preconditioner(mesh)
-    proj, s = stokes.project_onto_range, 0.01
-    op = lambda q: proj(pc.e_apply_ef(proj(q), s))
-    precond = lambda r: proj(pc.apply_ef(proj(r)))
-    gen = torch.Generator(device=card)
-    gen.manual_seed(0)
-    u = torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen, dtype=mesh.dtype, device=card)
-    b = proj(-stokes.div_weak(mesh, u).reshape(-1, mesh.nel).T.contiguous())
-    graphed = PCG(op, b, precond, graph=True)
-    x_e, k_e, _ = PCG(op, b, precond).solve(b, tol=1e-10, maxiter=500)
-    for _ in range(2):  # the captured graph is reused across solves
-        x_g, k_g, rr = graphed.solve(b, tol=1e-10, maxiter=500)
-        assert k_g == k_e > 3
-        assert float(rr) <= 1e-20
-        assert rel(x_g, x_e) <= 1e-12
+def test_run_counter_counts_graph_replays(card):
+    """k replays of a captured velocity-CG iteration advance the device
+    counter by exactly k; a solve of the built-once velocity solver by its
+    iterations plus the right-hand side's apply."""
+    mesh = box_mesh(*CHANNEL, order=6, device=card)
+    diag = ns.helmholtz_diag(mesh, H1, H2, mesh.vmask)
+    sqw = mesh.vmult.sqrt()
+
+    def op(y):
+        t = sem.dssum(mesh, sqw * y)
+        hv = sem.dssum(mesh, sem.helmholtz_local(mesh, mesh.vmask * t, H1, H2))
+        return y + sqw * mesh.vmask * (hv - t)
+
+    b = mesh.vmask * torch.randn((2,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=card)
+    cg = PCG(op, b, precond=lambda r: r / diag)  # warm-up and capture run the kernel once
+    before = helmholtz_kernel.launches(card)
+    _, k, _ = cg.solve(b, tol=0.0, maxiter=7)  # every iteration a replay
+    assert k == 7 and helmholtz_kernel.launches(card) - before == 7
+
+    solve = ns.make_helmholtz_solver(mesh, H1, H2, mesh.vmask, diag, 1e-10, 500)
+    stats = {}
+    before = helmholtz_kernel.launches(card)
+    solve(b, torch.zeros_like(b), stats=stats)
+    assert helmholtz_kernel.launches(card) - before == stats["helmholtz"][0] + 1 > 4
+
+
+def test_graphed_velocity_cg_matches_cpu(card):
+    """The built-once velocity solver, on the card (its CG a graph replay)
+    and on CPU tensors (eager), over two right-hand sides."""
+    meshes = {dev: box_mesh(*CHANNEL, order=6, device=dev) for dev in (card, "cpu")}
+    solves = {dev: ns.make_helmholtz_solver(m, H1, H2, m.vmask,
+                                            ns.helmholtz_diag(m, H1, H2, m.vmask), 1e-10, 500)
+              for dev, m in meshes.items()}
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        rhs = rng.standard_normal((2,) + tuple(meshes["cpu"].bm1.shape))
+        out, stats = {}, {}
+        for dev, solve in solves.items():
+            stats[dev] = {}
+            out[dev] = solve(torch.as_tensor(rhs, device=dev), torch.zeros(rhs.shape, device=dev,
+                                                                           dtype=torch.float64),
+                             stats=stats[dev])
+        assert stats[card] == stats["cpu"] and stats["cpu"]["helmholtz"][0] > 3
+        assert rel(out[card], out["cpu"]) <= 1e-10
+
+
+def test_graphed_pressure_cg_matches_cpu(card):
+    """The pressure solver (E CG with the two-level preconditioner), on the
+    card (graph replays) and on CPU tensors, over two right-hand sides."""
+    cfg = ns.FlowConfig(viscosity=H1, dt=DT, ptol=1e-10, pmaxit=500)
+    solves = {}
+    for dev in (card, "cpu"):
+        m = box_mesh((8, 4), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        solves[dev] = (m, ns.make_pressure_solver(m, cfg, DT / (11 / 6), pc=build_e_preconditioner(m)))
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        u = rng.standard_normal((2,) + tuple(solves["cpu"][0].bm1.shape))
+        out, stats = {}, {}
+        for dev, (m, solve) in solves.items():
+            stats[dev] = {}
+            rhs = -stokes.div_weak(m, torch.as_tensor(u, device=dev))
+            out[dev] = solve(rhs, stats=stats[dev])
+        assert stats[card] == stats["cpu"] and stats["cpu"]["pressure"][0] > 3
+        assert rel(out[card], out["cpu"]) <= 1e-10

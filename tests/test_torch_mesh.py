@@ -43,7 +43,7 @@ def _assert_same_mesh(mesh, jmesh, atol):
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_box_mesh_matches_reference(name):
     kw = MESHES[name]
-    mesh = box_mesh(**kw)
+    mesh = box_mesh(**kw, device="cpu")
     jmesh = jbox_mesh(**kw)
     _assert_same_mesh(mesh, jmesh, 1e-13)
     assert mesh.gidx.dtype == torch.int64
@@ -65,13 +65,43 @@ def test_mesh_from_arrays_roundtrip(which):
 
 
 def test_mesh_to_moves_every_tensor():
-    mesh = box_mesh(**MESHES["box"]).to("cpu")
+    mesh = box_mesh(**MESHES["box"], device="cpu").to("cpu")
     for k in MESH_FIELDS + ("d", "jd", "j12", "dss_copies"):
         assert getattr(mesh, k).device.type == "cpu"
 
 
+@pytest.mark.parametrize("builder", ["box_mesh", "mesh_from_arrays"])
+def test_mesh_defaults_to_the_card(builder):
+    """Without `device=` a mesh lands on the current CUDA card; without a
+    card the builder raises and says to pass device="cpu"."""
+    if builder == "box_mesh":
+        build = lambda: box_mesh(**MESHES["box"])
+    else:
+        build = lambda: carry_mesh(jbox_mesh(**MESHES["box"]), device=None)
+    if torch.cuda.is_available():
+        mesh = build()
+        assert mesh.device == torch.device("cuda", torch.cuda.current_device())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+
+
 def test_port_imports_without_jax():
-    code = ("import neklab_tpu_torch, sys; assert 'jax' not in sys.modules; "
-            "import neklab_tpu_torch.analysis; assert 'jax' not in sys.modules")
+    """Every module of the port, chip_smoke.py and
+    tools/profile_torch_step.py import without pulling in jax or
+    neklab_tpu."""
+    code = """
+import importlib, importlib.util, pkgutil, sys
+import neklab_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(neklab_tpu_torch.__path__, "neklab_tpu_torch.")]
+assert "neklab_tpu_torch.ops.helmholtz_kernel" in mods and len(mods) > 20, mods
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+spec = importlib.util.spec_from_file_location("profile_torch_step", "tools/profile_torch_step.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "neklab_tpu"))
+assert not bad, bad
+"""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)

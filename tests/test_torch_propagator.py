@@ -43,7 +43,7 @@ MESH = dict(nels=(4, 5), lims=((0, 2 * np.pi), (-1, 1)), bc=CHANNEL_BC, order=6)
 
 @pytest.fixture(scope="module")
 def poiseuille():
-    jmesh, mesh = jbox_mesh(**MESH), box_mesh(**MESH)
+    jmesh, mesh = jbox_mesh(**MESH), box_mesh(**MESH, device="cpu")
     fc = dict(viscosity=1 / RE, dt=1e-2, vtol=1e-12, ptol=1e-12)
     y = jmesh.x[1]
     jprop = JProp(jmesh, jlin.LinConfig(flow=JFlowConfig(**fc)), jnp.stack([1 - y**2, 0 * y]),
@@ -79,12 +79,30 @@ def test_propagate_reports_iterations_per_step(poiseuille):
     _, mesh, _, prop, u = poiseuille
     th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=torch.float64)
     args = (mesh, prop.cfg, prop.base_u, prop.base_theta, t(u), th, 4)
-    kw = dict(pc_e=prop.pc_e, vdiag=prop.vdiag, psolves=prop.psolves)
+    kw = dict(pc_e=prop.pc_e, vdiag=prop.vdiag, psolves=prop.psolves, vsolves=prop.vsolves)
     stats = {}
     out = lin.propagate(*args, stats=stats, **kw)[0]
     assert sorted(stats) == ["helmholtz", "pressure"]
     assert all(len(v) == 4 and min(v) > 0 for v in stats.values()), stats
     assert torch.equal(out, lin.propagate(*args, **kw)[0])
+
+
+def test_propagate_with_prebuilt_solvers_matches_reference_twice(poiseuille):
+    """`propagate` with velocity and pressure solvers built once
+    (`velocity_solvers`, `pressure_solvers`) and reused for two calls
+    matches the reference's `propagate` both times."""
+    jmesh, mesh, jprop, prop, u = poiseuille
+    th = np.zeros((0,) + tuple(jmesh.bm1.shape))
+    ref = jlin.propagate(jmesh, jprop.cfg, jprop.base_u, jprop.base_theta, jnp.asarray(u),
+                         jnp.asarray(th), jprop.nsteps, pc_e=jprop.pc_e, vdiag=jprop.vdiag)[0]
+    psolves = lin.pressure_solvers(mesh, prop.cfg, prop.nsteps, prop.pc_e)
+    vsolves = lin.velocity_solvers(mesh, prop.cfg, prop.nsteps, prop.vdiag, prop.tdiags)
+    assert sorted(vsolves) == sorted(psolves) == [1, 2, 3]
+    for _ in range(2):
+        out = lin.propagate(mesh, prop.cfg, prop.base_u, prop.base_theta, t(u), t(th),
+                            prop.nsteps, pc_e=prop.pc_e, vdiag=prop.vdiag, psolves=psolves,
+                            vsolves=vsolves)[0]
+        assert absdiff(out, ref) <= 1e-10
 
 
 def test_arnoldi_and_ritz_values_match(poiseuille, tmp_path):
@@ -139,7 +157,7 @@ def test_flow_vector_space_matches_reference(poiseuille):
 def test_propagate_with_scalar_matches_reference():
     """Scalar transport with a linear buoyancy coupling rides along."""
     kw = dict(nels=(3, 3), lims=((0, 2 * np.pi), (-1, 1)), bc=CHANNEL_BC, order=4)
-    jmesh, mesh = jbox_mesh(**kw), box_mesh(**kw)
+    jmesh, mesh = jbox_mesh(**kw), box_mesh(**kw, device="cpu")
     fc = dict(viscosity=1e-2, dt=2e-2, nscal=1, conductivity=(2e-2,), vtol=1e-12,
               ptol=1e-12, ttol=1e-12)
     jcfg = jlin.LinConfig(flow=JFlowConfig(**fc),

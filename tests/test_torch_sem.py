@@ -37,7 +37,7 @@ def _meshes(name):
     else:
         jmesh = annulus_mesh(3, 8, r_in=0.5, r_out=2.0, order=4, dtype=jnp.float64)
         return jmesh, carry_mesh(jmesh)
-    return jbox_mesh(**kw), box_mesh(**kw)
+    return jbox_mesh(**kw), box_mesh(**kw, device="cpu")
 
 
 @pytest.fixture(scope="module", params=["channel", "deformed", "annulus"])

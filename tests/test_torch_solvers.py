@@ -15,6 +15,7 @@ Tolerances (f64, CPU):
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from neklab_tpu.mesh.box import box_mesh as jbox_mesh
 from neklab_tpu.mesh.cylinder import annulus_mesh
@@ -39,7 +40,7 @@ S = DT / (11.0 / 6.0)  # dt / g0
 @pytest.fixture(scope="module")
 def channel():
     kw = dict(nels=(4, 5), lims=((0, 2 * np.pi), (-1, 1)), bc=CHANNEL_BC, order=6)
-    return jbox_mesh(**kw), box_mesh(**kw)
+    return jbox_mesh(**kw), box_mesh(**kw, device="cpu")
 
 
 def test_helmholtz_diag(channel):
@@ -98,10 +99,47 @@ def test_helmholtz_solve_reports_its_iterations(channel):
     assert stats["helmholtz"][0] > 3 and abs(stats["helmholtz"][0] - int(jk)) <= 1
 
 
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_built_once_velocity_solver_matches_fresh_and_reference(channel, order):
+    """A velocity solver built once (`make_helmholtz_solver`, as `propagate`
+    builds one per BDF order) and run over three successive right-hand sides
+    matches a fresh `helmholtz_solve` per call, with the same iteration
+    count, and the reference's `helmholtz_solve`."""
+    jmesh, mesh = channel
+    h2 = ns._BDF[order][0] / DT
+    jdiag = jns.helmholtz_diag(jmesh, H1, h2, jmesh.vmask)
+    diag = ns.helmholtz_diag(mesh, H1, h2, mesh.vmask)
+    solve = ns.make_helmholtz_solver(mesh, H1, h2, mesh.vmask, diag, 1e-11, 500)
+    rng = np.random.default_rng(20 + order)
+    shape = (2,) + tuple(jmesh.bm1.shape)
+    for i in range(3):
+        rhs = rng.standard_normal(shape)
+        # the second and third carry Dirichlet values (continuous across copies)
+        bc = np.asarray(jsem.dsavg(jmesh, jnp.asarray(rng.standard_normal(shape)))) * (i > 0)
+        stats, fresh_stats = {}, {}
+        out = solve(t(rhs), t(bc), stats=stats)
+        fresh = ns.helmholtz_solve(mesh, t(rhs), H1, h2, mesh.vmask, t(bc), 1e-11, 500, diag,
+                                   stats=fresh_stats)
+        ref = jns.helmholtz_solve(jmesh, jnp.asarray(rhs), H1, h2, jmesh.vmask, jnp.asarray(bc),
+                                  1e-11, 500, jdiag)
+        assert stats == fresh_stats and stats["helmholtz"][0] > 3, (stats, fresh_stats)
+        assert absdiff(out, fresh) <= 1e-9
+        assert absdiff(out, ref) <= 1e-9
+
+
+def test_helmholtz_solver_rejects_another_shape(channel):
+    _, mesh = channel
+    diag = ns.helmholtz_diag(mesh, H1, H2, mesh.vmask)
+    solve = ns.make_helmholtz_solver(mesh, H1, H2, mesh.vmask, diag, 1e-11, 500)
+    rhs = torch.zeros((3, 2) + tuple(mesh.bm1.shape), dtype=torch.float64)  # one more axis
+    with pytest.raises(ValueError):
+        solve(rhs, torch.zeros_like(rhs))
+
+
 def _pc_meshes(name):
     if name == "channel":
         kw = dict(nels=(8, 4), lims=((0, 2 * np.pi), (-1, 1)), bc=CHANNEL_BC, order=6)
-        return jbox_mesh(**kw), box_mesh(**kw)
+        return jbox_mesh(**kw), box_mesh(**kw, device="cpu")
     jmesh = annulus_mesh(3, 8, r_in=0.5, r_out=2.0, order=4, dtype=jnp.float64)
     return jmesh, carry_mesh(jmesh)
 

@@ -48,7 +48,7 @@ def t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float64))
 
 
-def carry_mesh(jmesh, dtype=torch.float64, device=None):
+def carry_mesh(jmesh, dtype=torch.float64, device="cpu"):
     """The port's SemMesh built from a reference SemMesh's fields."""
     arrays = {k: np.asarray(getattr(jmesh, k)) for k in MESH_FIELDS}
     meta = dict(n=jmesh.basis.n, nd=jmesh.basis.nd, ndim=jmesh.ndim, nel=jmesh.nel,

@@ -10,10 +10,14 @@ B-normalized state (the sustained protocol):
   * host ms/step of three unprofiled windows of `nsteps` steps;
   * velocity (Helmholtz) and pressure (E) CG iterations per step, as the
     solvers of that propagate report them (`propagate(..., stats=)`);
-  * helmholtz2d kernel launches per step;
-  * one `torch.profiler` window: device-busy ms/step (summed kernel and copy
-    times) and its share of the profiled wall time, device operations per
-    step, and the top operations by device time.
+  * helmholtz2d kernel runs per step, from the kernel's device counter
+    (graph replays included);
+  * one `torch.profiler` window: the host's launch calls per step
+    (`cudaLaunchKernel` and `cudaGraphLaunch` events of its CPU trace; unlike
+    ms/step, this count does not move with the host's load), device-busy
+    ms/step (summed kernel and copy times) and its share of the profiled
+    wall time, device operations per step, and the top operations by device
+    time.
 One JSON line per case. Needs a CUDA card; imports no jax.
 """
 
@@ -29,13 +33,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CHANNEL = {"x-": "P", "x+": "P", "y-": "W", "y+": "W"}
+# the runtime calls by which the host puts work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
 
 
 def build_case(name, dev):
-    """-> (mesh, cfg, base_u, pc_e, vdiag, psolves) for `propagate`."""
+    """-> (mesh, cfg, base_u, pc_e, vdiag, psolves, vsolves) for `propagate`."""
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
     from neklab_tpu_torch.mesh.box import box_mesh
-    from neklab_tpu_torch.models.linearized import LinConfig, pressure_solvers
+    from neklab_tpu_torch.models.linearized import LinConfig, pressure_solvers, velocity_solvers
     from neklab_tpu_torch.models.navier_stokes import FlowConfig, helmholtz_diag
     from neklab_tpu_torch.models.precond import build_e_preconditioner
 
@@ -52,12 +58,13 @@ def build_case(name, dev):
     base_u = torch.stack([1 - y**2, 0 * y])
     if name == "re7500":  # the main path's propagator: dt from the CFL target
         op = ExponentialPropagator(mesh, LinConfig(flow=fc), base_u, tau=0.5, cfl=0.5)
-        return mesh, op.cfg, base_u, op.pc_e, op.vdiag, op.psolves
+        return mesh, op.cfg, base_u, op.pc_e, op.vdiag, op.psolves, op.vsolves
     # box2d: bench.py's fixed dt, set up as ExponentialPropagator would
     cfg = LinConfig(flow=fc)
     pc = build_e_preconditioner(mesh)
     vdiag = helmholtz_diag(mesh, fc.viscosity, (11 / 6) / fc.dt, mesh.vmask)
-    return mesh, cfg, base_u, pc, vdiag, pressure_solvers(mesh, cfg, 3, pc)
+    return (mesh, cfg, base_u, pc, vdiag, pressure_solvers(mesh, cfg, 3, pc),
+            velocity_solvers(mesh, cfg, 3, vdiag, None))
 
 
 def profile_case(name, dev, nsteps):
@@ -67,12 +74,12 @@ def profile_case(name, dev, nsteps):
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
     from neklab_tpu_torch.ops import sem
 
-    mesh, cfg, base_u, pc, vdiag, psolves = build_case(name, dev)
+    mesh, cfg, base_u, pc, vdiag, psolves, vsolves = build_case(name, dev)
     th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
 
     def run(u, stats=None):
         u = propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc, vdiag=vdiag,
-                      psolves=psolves, stats=stats)[0]
+                      psolves=psolves, vsolves=vsolves, stats=stats)[0]
         return u / sem.mass_dot(mesh, u, u).sqrt()
 
     gen = torch.Generator(device=dev)
@@ -80,19 +87,22 @@ def profile_case(name, dev, nsteps):
     u = mesh.vmask * sem.dsavg(mesh, torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen,
                                                  dtype=mesh.dtype, device=dev))
     u = run(u / sem.mass_dot(mesh, u, u).sqrt())  # warm-up
-    torch.cuda.synchronize()
-    walls, stats, n0 = [], {}, hk.LAUNCHES
+    walls, stats, n0 = [], {}, hk.launches(dev)  # synchronizes
     for _ in range(3):
         t0 = time.perf_counter()
         u = run(u, stats)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0) / nsteps)
-    launches = (hk.LAUNCHES - n0) / (3 * nsteps)
+    runs = (hk.launches(dev) - n0) / (3 * nsteps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(u)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
+    host_launches = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in LAUNCH_CALLS:
+            host_launches[e.name] = host_launches.get(e.name, 0) + 1
     ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time for e in ev)
     by = {}
@@ -105,7 +115,9 @@ def profile_case(name, dev, nsteps):
         "nsteps": nsteps,
         "ms_per_step": walls,
         "cg_iters_per_step": {k: sum(v) / len(v) for k, v in stats.items()},
-        "helmholtz2d_launches_per_step": launches,
+        "helmholtz2d_runs_per_step": runs,
+        "host_launch_calls_per_step": sum(host_launches.values()) / nsteps,
+        "host_launch_calls_by_name_per_step": {k: v / nsteps for k, v in host_launches.items()},
         "profiled_ms_per_step": 1e3 * pwall / nsteps,
         "device_busy_ms_per_step": dev_us / 1e3 / nsteps,
         "device_busy_share_of_profiled": dev_us / 1e6 / pwall,
