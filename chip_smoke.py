@@ -126,7 +126,7 @@ def poiseuille(dev, dtype, nels, order, re, tol):
 # device ms per call of the kernel's first design (one thread per element), from
 # PERF.md's kernel table
 EARLIER_MS = {"[2, 9, 9, 120] f32": 0.016281, "[2, 8, 8, 1024] f32": 0.011761}
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, non-tensor flop/s
+# H100 SXM peaks from the data sheet: HBM bytes/s, non-tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
