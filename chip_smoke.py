@@ -158,9 +158,8 @@ def kernel_phase(dev):
     CG iteration, one of n*n the Jacobi-diagonal probe, helmholtz_diag) and
     at the edges of its tiling: nel not a multiple of the tile (15, 121),
     n = 2 and n = 12, a batch of 1 and of 81. Times it against the plain
-    chain at the main path's CG shape (phase 6) and at box2d's, and a few
-    (elements, leading entries) tiles per block, beside the launcher's own
-    choice, at those shapes and at their probe shapes."""
+    chain at the main path's CG shape (phase 6) and at box2d's, and alone at
+    their probe shapes."""
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
 
@@ -202,15 +201,10 @@ def kernel_phase(dev):
         # f32: float32 summation order over ~2n terms per point
         assert errs[key] <= (1e-12 if args[0].dtype == torch.float64 else 2e-5), (key, errs[key])
 
-    times, tiles = {}, {}
-    sweep = {(2,): ((1, 1), (2, 1), (4, 1), (4, 2), (8, 1), (8, 2)),
-             (81,): ((2, 9), (4, 6), (4, 11), (4, 21), (4, 41), (8, 9), (8, 81)),
-             (64,): ((4, 8), (8, 2), (8, 4), (8, 8), (8, 16), (8, 64))}
-    for m, lead in ((re7500, (81,)), (box2d, (64,))):  # the Jacobi probe: tiles only
+    times, probes = {}, {}
+    for m, lead in ((re7500, (81,)), (box2d, (64,))):  # the Jacobi probe
         args = mesh_args(m, lead)
-        tiles[f"{list(args[0].shape)} f32"] = {
-            str(tile): device_ms(lambda: hk.helmholtz2d(*args, tile=tile))
-            for tile in sweep[lead] + (None,)}
+        probes[f"{list(args[0].shape)} f32"] = device_ms(lambda: hk.helmholtz2d(*args))
     for m in (re7500, box2d):
         args = mesh_args(m, (2,))
         key = f"{list(args[0].shape)} f32"
@@ -225,9 +219,7 @@ def kernel_phase(dev):
         times[key] = {"kernel_device_ms": kern, "plain_device_ms": plain, "bound_ms": bound,
                       "bound_by": by, "share_of_bound": bound / med,
                       "earlier_design_ms": EARLIER_MS.get(key)}
-        tiles[key] = {str(tile): device_ms(lambda: hk.helmholtz2d(*args, tile=tile))
-                      for tile in sweep[(2,)] + (None,)}  # None: the launcher's choice
-    phase("kernel", t0, rel_err=errs, max_abs_err=max_abs, times=times, tiles_device_ms=tiles,
+    phase("kernel", t0, rel_err=errs, max_abs_err=max_abs, times=times, probe_device_ms=probes,
           library="none: no single PyTorch call computes the fused apply")
     n = re7500.basis.n
     main = times[f"[2, {n}, {n}, {re7500.nel}] f32"]
@@ -376,7 +368,7 @@ def main_path_phase(dev) -> int:
 
     t0 = time.time()
     re = 7500.0
-    hk.reset_launches()
+    hk.reset_launches(dev)
     mesh, expA = poiseuille(dev, torch.float32, (12, 10), 8, re, 1e-7)
     res = linear_stability_analysis_fixed_point(expA, flow_vector_space(mesh, 0), kdim=96,
                                                 nev=10, tol=1e-6, maxiter=10)

@@ -141,44 +141,41 @@ cudaError_t num_sms(int* sms) {
   return cudaSuccess;
 }
 
-// tile = chunk = 0 lets the launcher choose. Fewer, larger blocks read the
-// geometry fewer times; more blocks put more SMs to work, and a long loop
-// over the batch inside a block serializes. It starts from the largest tile
-// with the whole batch in each block; while the grid holds fewer blocks than
-// a quarter of the SMs, it halves the tile down to 4 elements (16 bytes a
-// point in f32), then the batch chunk; then it halves the chunk further
-// while the grid still fits on the SMs or the chunk is longer than 8. That
-// gives (4, 1) at [2, 9, 9, 120], (8, 2) at [2, 8, 8, 1024], (4, 6) at
-// [81, 9, 9, 120] and (8, 8) at [64, 8, 8, 1024]: the fastest, or within
-// 3 % of it, of the tiles chip_smoke.py times at those shapes.
+// The launcher chooses the tile from the shape and the card. Fewer, larger
+// blocks read the geometry fewer times; more blocks put more SMs to work,
+// and a long loop over the batch inside a block serializes. It starts from
+// the largest tile with the whole batch in each block; while the grid holds
+// fewer blocks than a quarter of the SMs, it halves the tile down to 4
+// elements (16 bytes a point in f32), then the batch chunk; then it halves
+// the chunk further while the grid still fits on the SMs or the chunk is
+// longer than 8. On a 132-SM H100 that gives (4, 1) at [2, 9, 9, 120],
+// (8, 2) at [2, 8, 8, 1024], (4, 6) at [81, 9, 9, 120] and (8, 8) at
+// [64, 8, 8, 1024]: the fastest, or within 3 % of it, of the (elements,
+// entries) tiles timed at those shapes (PERF.md).
 template <typename T, int N>
 int launch_n(const T* u, const T* d, const T* g00, const T* g01, const T* g11,
-             const T* bm1, T* out, int batch, int nel, double h1, double h2, int tile,
-             int chunk, unsigned long long* runs, cudaStream_t stream) {
+             const T* bm1, T* out, int batch, int nel, double h1, double h2,
+             unsigned long long* runs, cudaStream_t stream) {
   constexpr int NP = N * N;
   auto blocks = [&](int te, int ch) {
     return (long long)((nel + te - 1) / te) * ((batch + ch - 1) / ch);
   };
-  if (tile == 0 && chunk == 0) {
-    int sms = 0;
-    const cudaError_t err = num_sms(&sms);
-    if (err != cudaSuccess) return (int)err;
-    tile = max_tile<N>();
-    chunk = batch;
-    while (blocks(tile, chunk) < sms / 4) {
-      if (tile > 4)
-        tile /= 2;
-      else if (chunk > 1)
-        chunk = (chunk + 1) / 2;
-      else
-        break;
-    }
-    while (chunk > 8 || (chunk > 1 && blocks(tile, (chunk + 1) / 2) <= sms))
+  int sms = 0;
+  const cudaError_t err = num_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  int tile = max_tile<N>();
+  int chunk = batch;
+  while (blocks(tile, chunk) < sms / 4) {
+    if (tile > 4)
+      tile /= 2;
+    else if (chunk > 1)
       chunk = (chunk + 1) / 2;
+    else
+      break;
   }
-  if (tile < 1 || tile > max_tile<N>()) return (int)cudaErrorInvalidValue;
+  while (chunk > 8 || (chunk > 1 && blocks(tile, (chunk + 1) / 2) <= sms))
+    chunk = (chunk + 1) / 2;
   const int tiles = (nel + tile - 1) / tile;
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
   const int chunks = (batch + chunk - 1) / chunk;
   if (chunks > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * (size_t)(NP + 3 * NP * tile);  // <= 24.2 KB
@@ -192,12 +189,12 @@ int launch_n(const T* u, const T* d, const T* g00, const T* g01, const T* g11,
 template <typename T>
 int launch(const T* u, const T* d, const T* g00, const T* g01, const T* g11,
            const T* bm1, T* out, int batch, int nel, int n, double h1, double h2,
-           int tile, int chunk, unsigned long long* runs, void* stream) {
+           unsigned long long* runs, void* stream) {
   if (nel < 1 || batch < 1 || runs == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define NEKLAB_HELMHOLTZ_CASE(NN) \
   case NN:                        \
-    return launch_n<T, NN>(u, d, g00, g01, g11, bm1, out, batch, nel, h1, h2, tile, chunk, runs, st);
+    return launch_n<T, NN>(u, d, g00, g01, g11, bm1, out, batch, nel, h1, h2, runs, st);
   switch (n) {  // n = order + 1 = 2..12, as the wrapper admits
     NEKLAB_HELMHOLTZ_CASE(2)
     NEKLAB_HELMHOLTZ_CASE(3)
@@ -223,17 +220,15 @@ extern "C" {
 int helmholtz2d_f32(const float* u, const float* d, const float* g00,
                     const float* g01, const float* g11, const float* bm1,
                     float* out, int batch, int nel, int n, double h1, double h2,
-                    int tile, int chunk, unsigned long long* runs, void* stream) {
-  return launch<float>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, tile, chunk,
-                       runs, stream);
+                    unsigned long long* runs, void* stream) {
+  return launch<float>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, runs, stream);
 }
 
 int helmholtz2d_f64(const double* u, const double* d, const double* g00,
                     const double* g01, const double* g11, const double* bm1,
                     double* out, int batch, int nel, int n, double h1, double h2,
-                    int tile, int chunk, unsigned long long* runs, void* stream) {
-  return launch<double>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, tile, chunk,
-                        runs, stream);
+                    unsigned long long* runs, void* stream) {
+  return launch<double>(u, d, g00, g01, g11, bm1, out, batch, nel, n, h1, h2, runs, stream);
 }
 
 }  // extern "C"

@@ -105,20 +105,16 @@ def step_lin(
     base_u,
     base_theta,
     order: int,
-    vdiag=None,
-    tdiags=None,
-    pc_e=None,
+    psolve,
+    vsolve,
+    tsolves,
     conv_cache=None,
-    psolve=None,
-    vsolve=None,
-    tsolves=None,
     stats=None,
 ) -> PertState:
     """One linearized BDF(order)/EXT(order) step (homogeneous BCs).
 
     psolve, vsolve, tsolves: this order's pressure, velocity and scalar
-    solvers (`pressure_solvers`, `velocity_solvers`), built once by a caller
-    that steps repeatedly; built here when None (vsolve and tsolves together).
+    solvers (`pressure_solvers`, `velocity_solvers`).
     stats: optional dict; the velocity and pressure CG iteration counts are
     appended to stats["helmholtz"] and stats["pressure"]."""
     fc = cfg.flow
@@ -134,13 +130,9 @@ def step_lin(
     bsum = betas[0] * state.u + betas[1] * state.ulag[0] + betas[2] * state.ulag[1]
     rhs = (fc.rho / dt) * mesh.bm1 * bsum + nstar + stokes.grad_weak_t(mesh, pstar)
 
-    if vsolve is None or tsolves is None:
-        vsolve, tsolves = _helmholtz_solvers(mesh, fc, order, vdiag, tdiags)
     ustar = vsolve(rhs, torch.zeros_like(state.u), stats=stats)
 
     dt_over_g0 = dt / (g0 * fc.rho)
-    if psolve is None:
-        psolve = make_pressure_solver(mesh, fc, dt_over_g0, pc=pc_e)
     # warm start: the previous step's increment
     dp = psolve(-stokes.div_weak(mesh, ustar), x0=state.p - state.plag[0], stats=stats)
     du = stokes.pressure_correct_velocity(mesh, dp, dt_over_g0)
@@ -183,19 +175,13 @@ def pressure_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, pc_e=None) -> d
 
 
 def _helmholtz_solvers(mesh: SemMesh, fc: FlowConfig, order: int, vdiag, tdiags):
-    """(velocity solver, [scalar solvers]) of one BDF order. vdiag, tdiags:
-    the Jacobi diagonals (built here when None)."""
+    """(velocity solver, [scalar solvers]) of one BDF order."""
     g0 = _BDF[order][0]
-    h2 = fc.rho * g0 / fc.dt
-    if vdiag is None:
-        vdiag = helmholtz_diag(mesh, fc.viscosity, h2, mesh.vmask)
-    vsolve = make_helmholtz_solver(mesh, fc.viscosity, h2, mesh.vmask, vdiag, fc.vtol,
-                                   fc.vmaxit)
-    tsolves = []
-    for i in range(fc.nscal):
-        k1, k2 = fc.conductivity[i], g0 / fc.dt
-        tdiag = tdiags[i] if tdiags is not None else helmholtz_diag(mesh, k1, k2, mesh.tmask)
-        tsolves.append(make_helmholtz_solver(mesh, k1, k2, mesh.tmask, tdiag, fc.ttol, fc.vmaxit))
+    vsolve = make_helmholtz_solver(mesh, fc.viscosity, fc.rho * g0 / fc.dt, mesh.vmask, vdiag,
+                                   fc.vtol, fc.vmaxit)
+    tsolves = [make_helmholtz_solver(mesh, fc.conductivity[i], g0 / fc.dt, mesh.tmask, tdiags[i],
+                                     fc.ttol, fc.vmaxit)
+               for i in range(fc.nscal)]
     return vsolve, tsolves
 
 
@@ -203,7 +189,8 @@ def velocity_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, vdiag, tdiags) 
     """{order: (velocity solver, [scalar solvers])} for the BDF orders
     `propagate` steps with. h2 = rho g0 / dt changes with the order in the
     ramp, so each order has its own solvers; vdiag and tdiags (the BDF3
-    Jacobi diagonals, or None) serve every order, as in the reference."""
+    Jacobi diagonals; tdiags may be None without scalars) serve every order,
+    as in the reference."""
     fc = cfg.flow
     tmax = min(fc.torder, 3)
     return {order: _helmholtz_solvers(mesh, fc, order, vdiag, tdiags)
@@ -240,7 +227,6 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     for k in range(nsteps):
         order = min(k + 1, tmax)
         vsolve, tsolves = vsolves[order]
-        state = step_lin(mesh, cfg, state, base_u, base_theta, order=order, pc_e=pc_e,
-                         conv_cache=ccache, psolve=psolves[order], vsolve=vsolve,
-                         tsolves=tsolves, stats=stats)
+        state = step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
+                         tsolves, conv_cache=ccache, stats=stats)
     return state.u, state.theta

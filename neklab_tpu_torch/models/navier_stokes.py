@@ -107,10 +107,13 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
 
 def helmholtz_solve(mesh, rhs_weak, h1, h2, mask, bc_val, tol, maxiter, diag, stats=None):
     """Solve (h1 A + h2 B) u = rhs with u = bc_val on Dirichlet DOFs: one
-    solve of a `make_helmholtz_solver` built for it. A caller that solves
+    solve of a `make_helmholtz_solver` built for it, sized to the broadcast
+    shape of the arguments, so rhs_weak may carry any leading axes. On the
+    card that builds (and captures) a CG per call: a caller that solves
     repeatedly builds the solver once instead."""
-    return make_helmholtz_solver(mesh, h1, h2, mask, diag, tol, maxiter)(rhs_weak, bc_val,
-                                                                         stats=stats)
+    shape = torch.broadcast_shapes(rhs_weak.shape, bc_val.shape, mask.shape, diag.shape)
+    solve = make_helmholtz_solver(mesh, h1, h2, mask.expand(shape), diag, tol, maxiter)
+    return solve(rhs_weak, bc_val, stats=stats)
 
 
 def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):

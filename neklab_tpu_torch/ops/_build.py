@@ -88,9 +88,9 @@ def load() -> ctypes.CDLL:
         ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for name in ("helmholtz2d_f32", "helmholtz2d_f64"):
             fn = getattr(lib, name)
-            # u, d, g00, g01, g11, bm1, out; batch, nel, n; h1, h2; tile,
-            # chunk; the run counter and the stream (pointers as c_void_p)
-            fn.argtypes = [ptr] * 7 + [i32, i32, i32, f64, f64, i32, i32, ptr, ptr]
+            # u, d, g00, g01, g11, bm1, out; batch, nel, n; h1, h2; the run
+            # counter and the stream (pointers as c_void_p)
+            fn.argtypes = [ptr] * 7 + [i32, i32, i32, f64, f64, ptr, ptr]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -42,13 +42,12 @@ def helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2):
     return h1 * (apply_r(d.T, wr) + apply_s(d.T, ws)) + h2 * bm1 * u
 
 
-def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2, *, tile: tuple[int, int] | None = None):
+def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2):
     """Fused local Helmholtz apply on [..., n, n, nel] fields.
 
     CPU tensors: `helmholtz2d_plain`. CUDA tensors: the kernel, launched on
-    the current stream without synchronizing, into a fresh output.
-    tile: (elements per block, leading entries per block); None lets the
-    launcher choose from the shape and the card."""
+    the current stream without synchronizing, into a fresh output; the
+    launcher picks its tile from the shape and the card."""
     if u.device.type == "cpu":
         return helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2)
     _check(u, d, g00, g01, g11, bm1)
@@ -56,7 +55,6 @@ def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2, *, tile: tuple[int, int] | Non
 
     n, nel = d.shape[0], u.shape[-1]
     batch = u.numel() // (n * n * nel)
-    te, chunk = tile if tile is not None else (0, 0)
     runs = _counter(u.device)
     out = torch.empty_like(u)
     lib = _build.load()
@@ -65,14 +63,18 @@ def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2, *, tile: tuple[int, int] | Non
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), d.data_ptr(), g00.data_ptr(), g01.data_ptr(),
                  g11.data_ptr(), bm1.data_ptr(), out.data_ptr(),
-                 batch, nel, n, float(h1), float(h2), te, chunk, runs.data_ptr(), stream)
+                 batch, nel, n, float(h1), float(h2), runs.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"helmholtz2d kernel launch failed: cudaError {err}")
     return out
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def _counter(device: torch.device) -> torch.Tensor:
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _index(device)
     runs = _RUNS.get(index)
     if runs is None:
         if torch.cuda.is_current_stream_capturing():
@@ -82,30 +84,28 @@ def _counter(device: torch.device) -> torch.Tensor:
     return runs
 
 
-def _counters(device) -> list[torch.Tensor]:
-    if device is None:
-        return list(_RUNS.values())
+def _existing_counter(device) -> torch.Tensor | None:
     device = torch.device(device)
     if device.type != "cuda":
-        return []
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return [_RUNS[index]] if index in _RUNS else []
+        return None
+    return _RUNS.get(_index(device))
 
 
-def launches(device=None) -> int:
-    """Kernel runs on `device` (None: every card) since its counter was made
-    or last reset, graph replays included. Synchronizes the card; 0 for the
-    CPU and for a card the kernel never ran on."""
-    total = 0
-    for runs in _counters(device):
-        torch.cuda.synchronize(runs.device)
-        total += int(runs.item())
-    return total
+def launches(device) -> int:
+    """Kernel runs on `device` since its counter was made or last reset,
+    graph replays included. Synchronizes the card; 0 for the CPU and for a
+    card the kernel never ran on."""
+    runs = _existing_counter(device)
+    if runs is None:
+        return 0
+    torch.cuda.synchronize(runs.device)
+    return int(runs.item())
 
 
-def reset_launches(device=None) -> None:
-    """Zero the run counter of `device` (None: every card)."""
-    for runs in _counters(device):
+def reset_launches(device) -> None:
+    """Zero the run counter of `device`."""
+    runs = _existing_counter(device)
+    if runs is not None:
         runs.zero_()
 
 

@@ -69,11 +69,21 @@ def test_helmholtz2d_kernel_matches_plain(card, n, nel, lead, dtype):
     assert rel(out, helmholtz_kernel.helmholtz2d_plain(*args)) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("tile", [(1, 1), (2, 1), (4, 2), (8, 81), (8, 5)])
+# (n, nel, lead) -> the (elements, leading entries) per block the launcher
+# picks on a 132-SM H100: both tile widths, the whole batch in a block, and
+# chunks of the batch with a ragged last chunk and a ragged last tile
+TILE_SHAPES = {(4, 1): (9, 120, (2,)), (4, 3): (12, 15, (81,)), (4, 6): (9, 121, (81,)),
+               (8, 1): (9, 4097, ()), (8, 2): (8, 1024, (2,)), (8, 5): (9, 2001, (5,)),
+               (8, 8): (8, 1024, (64,))}
+
+
+@pytest.mark.parametrize("tile", list(TILE_SHAPES), ids=str)
 def test_helmholtz2d_every_tile_matches_plain(card, tile):
-    """Each (elements, leading entries) per block the launcher takes."""
-    args = random_args(9, 121, (81,), torch.float64, card)
-    out = helmholtz_kernel.helmholtz2d(*args, tile=tile)
+    """A shape for each (elements, leading entries) per block the launcher
+    picks; on another card the same shapes may take other tiles."""
+    n, nel, lead = TILE_SHAPES[tile]
+    args = random_args(n, nel, lead, torch.float64, card)
+    out = helmholtz_kernel.helmholtz2d(*args)
     assert rel(out, helmholtz_kernel.helmholtz2d_plain(*args)) <= 1e-12
 
 
@@ -82,7 +92,8 @@ def test_helmholtz2d_on_a_curved_mesh(card, dtype):
     mesh = box_mesh((5, 3), ((0.0, 2.0), (-1.0, 1.0)), WALLED_BC, order=5, deform=wavy,
                     dtype=dtype, device=card)
     g = mesh.g
-    u = torch.randn((2,) + tuple(mesh.bm1.shape), dtype=dtype, device=card)
+    u = np.random.default_rng(4).standard_normal((2,) + tuple(mesh.bm1.shape))
+    u = torch.as_tensor(u, dtype=dtype, device=card)
     args = (mesh.d, g[0, 0], g[0, 1], g[1, 1], mesh.bm1, 0.01, 3.7)
     assert rel(helmholtz_kernel.helmholtz2d(u, *args),
                helmholtz_kernel.helmholtz2d_plain(u, *args)) <= TOL[dtype]
@@ -97,8 +108,8 @@ def test_helmholtz2d_rejects_what_the_kernel_does_not_take(card):
         helmholtz_kernel.helmholtz2d(u.transpose(0, 1).contiguous().transpose(0, 1), *args)
     with pytest.raises(ValueError):  # dtype mismatch with the geometry
         helmholtz_kernel.helmholtz2d(u.float(), *args)
-    with pytest.raises(RuntimeError):  # a tile wider than the launcher takes
-        helmholtz_kernel.helmholtz2d(u, *args, tile=(16, 1))
+    with pytest.raises(ValueError):  # u's points do not match D's
+        helmholtz_kernel.helmholtz2d(u[:, :5, :5].contiguous(), *args)
 
 
 def test_run_counter_counts_graph_replays(card):
@@ -114,7 +125,8 @@ def test_run_counter_counts_graph_replays(card):
         hv = sem.dssum(mesh, sem.helmholtz_local(mesh, mesh.vmask * t, H1, H2))
         return y + sqw * mesh.vmask * (hv - t)
 
-    b = mesh.vmask * torch.randn((2,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=card)
+    b = np.random.default_rng(5).standard_normal((2,) + tuple(mesh.bm1.shape))
+    b = mesh.vmask * torch.as_tensor(b, device=card)
     cg = PCG(op, b, precond=lambda r: r / diag)  # warm-up and capture run the kernel once
     before = helmholtz_kernel.launches(card)
     _, k, _ = cg.solve(b, tol=0.0, maxiter=7)  # every iteration a replay

@@ -127,6 +127,22 @@ def test_built_once_velocity_solver_matches_fresh_and_reference(channel, order):
         assert absdiff(out, ref) <= 1e-9
 
 
+def test_helmholtz_solve_takes_any_leading_axes(channel):
+    """The one-shot `helmholtz_solve` sizes its solver from the right-hand
+    side: one more leading axis, solved jointly, as the reference does."""
+    jmesh, mesh = channel
+    rng = np.random.default_rng(9)
+    rhs = rng.standard_normal((3, 2) + tuple(jmesh.bm1.shape))
+    bc = np.zeros_like(rhs)
+    jdiag = jns.helmholtz_diag(jmesh, H1, H2, jmesh.vmask)
+    diag = ns.helmholtz_diag(mesh, H1, H2, mesh.vmask)
+    ref = jns.helmholtz_solve(jmesh, jnp.asarray(rhs), H1, H2, jmesh.vmask, jnp.asarray(bc),
+                              1e-11, 500, jdiag)
+    out = ns.helmholtz_solve(mesh, t(rhs), H1, H2, mesh.vmask, t(bc), 1e-11, 500, diag)
+    assert tuple(out.shape) == rhs.shape
+    assert absdiff(out, ref) <= 1e-9
+
+
 def test_helmholtz_solver_rejects_another_shape(channel):
     _, mesh = channel
     diag = ns.helmholtz_diag(mesh, H1, H2, mesh.vmask)
