@@ -3,27 +3,37 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, checks each
-against its plain torch twin, and drives the port's main path, the direct
-modal-stability eigensolve, through the user entry points (box_mesh ->
+against its plain torch twin, and drives the port's two main paths through
+the user entry points: the direct modal-stability eigensolve (box_mesh ->
 ExponentialPropagator -> flow_vector_space ->
-linear_stability_analysis_fixed_point). Phases:
+linear_stability_analysis_fixed_point) and transient growth, whose Lanczos
+SVD runs the exact discrete adjoint (... ->
+transient_growth_analysis_fixed_point). Phases:
 
   0 device   the card, its power limit, TF32 off
   1 build    nvcc -> neklab_tpu_torch/build/
   2 kernel   helmholtz2d vs helmholtz2d_plain at the main path's shapes and
              the tiling's edges; device times beside the bound
-  3 parity   propagate on the card (kernel, graphed CGs) vs on the CPU
-             (plain), f64; the kernel's device counter vs the CG counts
-  4 oracle   Poiseuille Re=500 eigenvalues vs Orr-Sommerfeld, f64
-  5 box2d    box2d 131k propagator, f32: ms/step sustained and floor
-  6 re7500   Poiseuille Re=7500 `medium` eigensolve, f32 (the main-path run)
+  3 parity   matvec and rmatvec on the card (kernel, graphed CGs, the
+             adjoint's recorded tape) vs on the CPU (plain), f64; the
+             B-adjoint identity on the card; the kernel's device counter vs
+             the CG counts of both
+  4 oracle   Poiseuille Re=500 direct and adjoint eigenvalues vs
+             Orr-Sommerfeld, f64
+  5 box2d    box2d 131k propagator, f32: ms/step sustained and floor, and
+             the adjoint's ms/step and tape bytes
+  6 re7500   Poiseuille Re=7500 `medium` eigensolve, f32 (the direct path)
+  7 growth   Poiseuille Re=7500 `medium` transient growth, f32 (the adjoint
+             path): s per matvec and per rmatvec, the triplet identity
 
-Phase 4 runs in a second process (this script with `--oracle`) beside phase
-6: both eigensolves are bound by the host's launch rate, one core each, and
-leave the card idle most of the time, so side by side they take the time of
-the longer one. Every phase asserts; any failure raises and the exit code is
-non-zero. The last line on success is {"ok": true, "device": {...}}; the
-line before it lists the kernels. Without a CUDA card it fails at once.
+Phase 4 runs in a second process (this script with `--oracle`) beside
+phases 6 and 7: the eigensolves are bound by the host's launch rate, one
+core each, and leave the card idle most of the time, so side by side they
+take the time of the longer one. The script uses one card: it makes only
+the first visible card visible to itself. Every phase asserts; any failure
+raises and the exit code is non-zero. The last line on success is
+{"ok": true, "device": {...}}; the line before it lists the kernels.
+Without a CUDA card it fails at once.
 
 The kernel counts its own runs in device memory (`helmholtz_kernel.launches`),
 so the velocity and pressure CGs, whose iterations replay CUDA graphs, are
@@ -32,6 +42,7 @@ counted too.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -229,11 +240,16 @@ def kernel_phase(dev):
 
 
 def parity_phase(dev):
-    """Phase 3: one matvec on the card (kernel, graphed CGs) and on the CPU
-    (plain, eager), f64. The kernel's device counter must rise by exactly the
-    runs the card's `stats` imply: one per velocity CG iteration (graph
-    replays) and one per solve for its right-hand side. The propagator
-    built every solver, and so every capture, before the window."""
+    """Phase 3: one matvec and one rmatvec on the card (kernel, graphed CGs,
+    the adjoint's recorded tape) and on the CPU (plain, eager), f64, and
+    the B-adjoint identity <Mu, v>_B = <u, M*v>_B on the card. The kernel's
+    device counter must rise by exactly the runs the card's `stats` imply:
+    in a matvec one per velocity CG iteration (graph replays) and one per
+    solve for its right-hand side; in an rmatvec one per transposed velocity
+    CG iteration and nothing else, because the right-hand side's apply acts
+    on the zero Dirichlet lift, a constant of the recorded tape, not on the
+    cotangent. The propagator built every solver and capture, and its
+    adjoint its solvers, captures and tape, before the windows."""
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
     from neklab_tpu_torch.ops import sem
 
@@ -241,27 +257,45 @@ def parity_phase(dev):
     _, prop_c = poiseuille(dev, torch.float64, (4, 5), 6, 500.0, 1e-12)
     mesh_h, prop_h = poiseuille("cpu", torch.float64, (4, 5), 6, 500.0, 1e-12)
     assert (prop_c.dt, prop_c.nsteps) == (prop_h.dt, prop_h.nsteps)
-    u = np.random.default_rng(11).standard_normal((2,) + tuple(mesh_h.bm1.shape))
-    uh = mesh_h.vmask * sem.dsavg(mesh_h, torch.as_tensor(u))
-    uh = uh / sem.mass_dot(mesh_h, uh, uh).sqrt()
+    rng = np.random.default_rng(11)
     th = torch.zeros((0,) + tuple(mesh_h.bm1.shape), dtype=torch.float64)
-    x_c = {"u": uh.to(dev), "theta": th.to(dev)}
-    stats_c, stats_h = {}, {}
-    n0 = hk.launches(dev)
-    out_c = prop_c.matvec(x_c, stats=stats_c)["u"]
-    runs = hk.launches(dev) - n0
-    out_h = prop_h.matvec({"u": uh, "theta": th}, stats=stats_h)["u"]
-    diff = float((out_c.cpu() - out_h).abs().max())
-    implied = sum(stats_c["helmholtz"]) + len(stats_c["helmholtz"])
-    assert runs == implied, (runs, implied)
-    assert diff <= 1e-9, diff  # the inner solves run to 1e-12 on both
-    phase("parity", t0, max_abs_diff=diff, kernel_runs=runs, runs_implied_by_stats=implied,
-          nsteps=prop_c.nsteps, cg_iters_card=stats_c, cg_iters_cpu=stats_h)
+
+    def conforming():
+        u = rng.standard_normal((2,) + tuple(mesh_h.bm1.shape))
+        u = mesh_h.vmask * sem.dsavg(mesh_h, torch.as_tensor(u))
+        return u / sem.mass_dot(mesh_h, u, u).sqrt()
+
+    uh, vh = conforming(), conforming()
+    prop_c.adjoint  # builds the adjoint's solvers and records its tape
+    out, runs, implied, stats = {}, {}, {}, {}
+    for name, x, extra in (("matvec", uh, 1), ("rmatvec", vh, 0)):
+        stats[name] = {"card": {}, "cpu": {}}
+        n0 = hk.launches(dev)
+        out_c = getattr(prop_c, name)({"u": x.to(dev), "theta": th.to(dev)},
+                                      stats=stats[name]["card"])["u"]
+        runs[name] = hk.launches(dev) - n0
+        out_h = getattr(prop_h, name)({"u": x, "theta": th}, stats=stats[name]["cpu"])["u"]
+        out[name] = (out_c, float((out_c.cpu() - out_h).abs().max()))
+        velocity = stats[name]["card"]["helmholtz"]
+        implied[name] = sum(velocity) + extra * len(velocity)
+        assert runs[name] == implied[name], (name, runs[name], implied[name])
+        # the inner solves run to 1e-12 (matvec) and 1e-13 (rmatvec) on both
+        assert out[name][1] <= 1e-9, (name, out[name][1])
+    mesh_c = prop_c.mesh
+    lhs = float(sem.mass_dot(mesh_c, out["matvec"][0], vh.to(dev)))
+    rhs = float(sem.mass_dot(mesh_c, uh.to(dev), out["rmatvec"][0]))
+    identity = abs(lhs - rhs) / abs(lhs)
+    assert identity <= 1e-9, (lhs, rhs)
+    phase("parity", t0, max_abs_diff={k: v[1] for k, v in out.items()}, kernel_runs=runs,
+          runs_implied_by_stats=implied, b_adjoint_identity_rel=identity, lhs=lhs, rhs=rhs,
+          tape_bytes=prop_c.adjoint.tape_bytes, nsteps=prop_c.nsteps, cg_iters=stats)
 
 
 def oracle_phase(dev):
     """Phase 4: Poiseuille Re=500 eigenvalues on the card, f64, against the
-    Orr-Sommerfeld/shear-mode oracle (tests/test_stability.py thresholds)."""
+    Orr-Sommerfeld/shear-mode oracle, then the adjoint's two leading ones
+    against the shear modes -nu (pi/2)^2 and -nu pi^2 (tests/test_stability.py
+    thresholds)."""
     from neklab_tpu_torch.analysis import linear_stability_analysis_fixed_point
     from neklab_tpu_torch.utils.orr_sommerfeld import orr_sommerfeld_spectrum, shear_mode_eigenvalues
     from neklab_tpu_torch.vectors import flow_vector_space
@@ -282,16 +316,26 @@ def oracle_phase(dev):
     assert res.residuals.max() < 2e-6, res.residuals
     assert max(dists) < 2e-4, dists
     assert lead_err < 1e-5, lead_err
+    adj = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0), kdim=30,
+                                                nev=2, tol=1e-5, maxiter=12, adjoint=True)
+    adj_err = [float(abs(adj.eigvals[0] - (-(1 / re) * (np.pi / 2) ** 2))),
+               float(abs(adj.eigvals[1] - (-(1 / re) * np.pi**2)))]
     phase("oracle", t0, eigvals=[[v.real, v.imag] for v in res.eigvals],
           residuals=res.residuals.tolist(), oracle_dist=dists, lead_err=lead_err,
-          n_matvec=res.n_matvec, seconds=res.elapsed)
+          n_matvec=res.n_matvec, seconds=res.elapsed,
+          adjoint_eigvals=[[v.real, v.imag] for v in adj.eigvals], adjoint_err=adj_err,
+          adjoint_n_matvec=adj.n_matvec, adjoint_seconds=adj.elapsed)
+    assert max(adj_err) < 1e-4, adj_err
 
 
 def box2d_phase(dev):
     """Phase 5: the box2d 131k propagator (bench.py:109-139), f32, with the
-    sustained protocol of bench.py:73-106 and its floor."""
-    from neklab_tpu_torch.models.linearized import (LinConfig, pressure_solvers, propagate,
-                                                    velocity_solvers)
+    sustained protocol of bench.py:73-106 and its floor; then its exact
+    adjoint at ExponentialPropagator's adjoint tolerances (10x tighter),
+    sustained, in turns with the direct map, and the bytes its recorded tape
+    holds on the card."""
+    from neklab_tpu_torch.models.linearized import (LinConfig, make_adjoint_propagator,
+                                                    pressure_solvers, propagate, velocity_solvers)
     from neklab_tpu_torch.models.navier_stokes import FlowConfig, helmholtz_diag
     from neklab_tpu_torch.models.precond import build_e_preconditioner
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
@@ -320,17 +364,19 @@ def box2d_phase(dev):
                          psolves=psolves, vsolves=vsolves, stats=stats)[0]
 
     def bnorm(u):
-        return u / sem.mass_dot(mesh, u, u).sqrt()
+        # at the floor the inner solves exit at once and the map returns
+        # zero, which stays zero (0/0 would feed NaN to the next call)
+        return u / sem.mass_dot(mesh, u, u).sqrt().clamp_min(torch.finfo(u.dtype).tiny)
 
-    def timed(state, scale, reps=3):
+    def timed(state, scale, reps=3, fn=prop):
         """-> (s per call, kernel runs per step from the device counter,
         mean CG iterations per step {helmholtz, pressure}, last state)."""
-        state = scale * bnorm(prop(state))  # warm-up
+        state = scale * bnorm(fn(state))  # warm-up
         stats = {}
         n0 = hk.launches(dev)  # synchronizes
         t1 = time.time()
         for _ in range(reps):
-            state = scale * bnorm(prop(state, stats=stats))
+            state = scale * bnorm(fn(state, stats=stats))
         torch.cuda.synchronize()
         seconds = (time.time() - t1) / reps
         iters = {k: statistics.mean(v) for k, v in stats.items()}
@@ -349,18 +395,33 @@ def box2d_phase(dev):
     # the first step's CG counts from a fresh random field (BDF1, the ramp)
     first = {}
     prop(fresh(), nst=1, stats=first)
+
+    cfg_adj = LinConfig(flow=dataclasses.replace(fc, vtol=0.1 * fc.vtol, ptol=0.1 * fc.ptol))
+    t_rec = time.time()
+    adj = make_adjoint_propagator(mesh, cfg_adj, base_u, th, nsteps, pc_e=pc, vdiag=vdiag)
+    torch.cuda.synchronize()
+    t_rec = time.time() - t_rec
+    s_adj, adj_runs_per_step, adj_iters, adj_state = timed(
+        fresh(), 1.0, fn=lambda u, stats=None: adj(u, th, stats=stats)[0])
+    s_dir2, _, _, _ = timed(fresh(), 1.0)
+    assert bool(torch.isfinite(adj_state).all()) and adj.tape_bytes > 0
     phase("box2d", t0, dof=dof, nsteps=nsteps, ms_per_step=1e3 * s_sus / nsteps,
           ms_per_step_floor=1e3 * s_floor / nsteps, dof_steps_per_s=dof * nsteps / s_sus,
           cg_iters_per_step=iters_sus, cg_iters_per_step_floor=iters_floor,
           cg_iters_first_step_fresh=first, pc_build_s=t_pc,
-          kernel_runs_per_step=launches_per_step)
+          kernel_runs_per_step=launches_per_step,
+          adjoint_ms_per_step=1e3 * s_adj / nsteps,
+          direct_ms_per_step_after_adjoint=1e3 * s_dir2 / nsteps,
+          adjoint_over_direct=2 * s_adj / (s_sus + s_dir2),
+          adjoint_cg_iters_per_step=adj_iters, adjoint_kernel_runs_per_step=adj_runs_per_step,
+          adjoint_build_s=t_rec, tape_bytes=adj.tape_bytes)
 
 
-def main_path_phase(dev) -> int:
+def main_path_phase(dev) -> tuple[int, complex]:
     """Phase 6: Poiseuille Re=7500 `medium` (examples/poiseuille_stability.py:
     51-75), f32, through the user entry points. Returns the kernel runs it
     made, graph replays included, from the device counter set to zero just
-    before."""
+    before, and the leading multiplier mu_1."""
     from neklab_tpu_torch.analysis import linear_stability_analysis_fixed_point
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
     from neklab_tpu_torch.utils.orr_sommerfeld import orr_sommerfeld_spectrum
@@ -387,16 +448,93 @@ def main_path_phase(dev) -> int:
           dt=expA.dt, seconds=res.elapsed, launches=launches)
     assert dist[i] < 2e-3, (nearest, os_lead, dist[i])
     assert res.residuals[i] < 1e-5, res.residuals[i]
-    return launches
+    return launches, complex(res.multipliers[0])
+
+
+class Counted:
+    """A propagator seen through its matvec and rmatvec, each timed on the
+    host and its kernel runs read from the device counter around it (the
+    reads synchronize the card; every call already ends in host reads)."""
+
+    def __init__(self, op, dev):
+        self.op, self.dev, self.tau = op, dev, op.tau
+        self.seconds = {"matvec": [], "rmatvec": []}
+        self.runs = {"matvec": [], "rmatvec": []}
+
+    def _call(self, name, x):
+        from neklab_tpu_torch.ops import helmholtz_kernel as hk
+
+        n0 = hk.launches(self.dev)
+        t0 = time.perf_counter()
+        y = getattr(self.op, name)(x)
+        n1 = hk.launches(self.dev)
+        self.seconds[name].append(time.perf_counter() - t0)
+        self.runs[name].append(n1 - n0)
+        return y
+
+    def matvec(self, x):
+        return self._call("matvec", x)
+
+    def rmatvec(self, x):
+        return self._call("rmatvec", x)
+
+
+def growth_phase(dev, mu1: complex) -> tuple[int, int]:
+    """Phase 7: transient growth of Poiseuille Re=7500 `medium`, f32 (the
+    phase-6 configuration), through the user entry points: every Lanczos
+    iteration one matvec and one rmatvec, both running the kernel inside
+    graphed CGs. The first rmatvec builds the adjoint (its solvers, captures
+    and tape). Asserts the triplet identity ||M v1 - sigma1 u1||_B <= 1e-3
+    sigma1 and non-normal growth sigma1 > 1.001 |mu_1|; prints the f32
+    B-adjoint identity. Returns the kernel runs of the phase, from the
+    device counter set to zero just before, and those of its rmatvecs."""
+    from neklab_tpu_torch.analysis import transient_growth_analysis_fixed_point
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.vectors import flow_vector_space
+
+    t0 = time.time()
+    hk.reset_launches(dev)
+    mesh, expA = poiseuille(dev, torch.float32, (12, 10), 8, 7500.0, 1e-7)
+    space = flow_vector_space(mesh, 0)
+    op = Counted(expA, dev)
+    res = transient_growth_analysis_fixed_point(op, space, kdim=32, nsv=2)
+    launches = hk.launches(dev)
+    mv = expA.matvec(res.optimal_inputs[0])
+    diff = {k: mv[k] - float(res.sigma[0]) * res.optimal_outputs[0][k] for k in mv}
+    triplet = space.norm(diff) / float(res.sigma[0])
+    # the f32 B-adjoint identity on conforming random vectors
+    u, v = space.rand(1), space.rand(2)
+    lhs = space.dot(expA.matvec(u), v)
+    rhs = space.dot(u, expA.rmatvec(v))
+    med = {k: statistics.median(v[1:]) for k, v in op.seconds.items()}
+    phase("growth", t0, sigma=res.sigma.tolist(), residuals=res.residuals.tolist(),
+          n_matvec=res.n_matvec, seconds=res.elapsed, nsteps=expA.nsteps,
+          triplet_rel=triplet, mu1_abs=abs(mu1), sigma1_over_mu1=float(res.sigma[0]) / abs(mu1),
+          s_per_matvec_median=med["matvec"], s_per_rmatvec_median=med["rmatvec"],
+          rmatvec_over_matvec=med["rmatvec"] / med["matvec"],
+          first_rmatvec_s=op.seconds["rmatvec"][0], kernel_runs_per_matvec=op.runs["matvec"],
+          kernel_runs_per_rmatvec=op.runs["rmatvec"], launches=launches,
+          b_adjoint_identity_rel=abs(lhs - rhs) / abs(lhs), lhs=lhs, rhs=rhs,
+          tape_bytes=expA.adjoint.tape_bytes)
+    assert np.all(np.isfinite(res.sigma))
+    assert triplet <= 1e-3, triplet
+    assert res.sigma[0] > 1.001 * abs(mu1), (res.sigma[0], mu1)
+    return launches, sum(op.runs["rmatvec"])
 
 
 def main() -> None:
+    # one card: the first visible one (before CUDA starts, so the count below
+    # is the number of cards this run uses)
+    os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    t_start = time.time()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import neklab_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from neklab_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
+    assert torch.cuda.device_count() == 1
     if sys.argv[1:] == ["--oracle"]:
         oracle_phase(dev)
         return
@@ -423,7 +561,8 @@ def main() -> None:
     oracle = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--oracle"],
                               stdout=subprocess.PIPE, text=True)
     try:
-        launches = main_path_phase(dev)
+        launches, mu1 = main_path_phase(dev)
+        growth_launches, adjoint_launches = growth_phase(dev, mu1)
         out, _ = oracle.communicate(timeout=1200)
     finally:
         if oracle.poll() is None:
@@ -433,13 +572,17 @@ def main() -> None:
     if oracle.returncode != 0:
         raise SystemExit(f"chip_smoke: phase oracle failed (exit {oracle.returncode})")
 
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": "helmholtz2d",
         "route": "cuda",
         "source": "neklab_tpu_torch/csrc/helmholtz2d.cu",
         "replaces": "neklab_tpu/ops/pallas_kernels.py:54",
-        "launches": launches,
+        "launches": launches + growth_launches,
+        "launches_by_path": {"direct eigensolve (phase 6)": launches,
+                             "transient growth (phase 7)": growth_launches},
+        "adjoint_launches": adjoint_launches,
         **kernel,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

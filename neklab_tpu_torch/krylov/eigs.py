@@ -16,7 +16,7 @@ from typing import Any, Callable
 import numpy as np
 import scipy.linalg
 
-from .linop import LinearOperator
+from .linop import AdjointOperator, LinearOperator
 from .space import KrylovBasis, VectorSpace
 
 logger = logging.getLogger("neklab_tpu_torch.krylov")
@@ -86,6 +86,7 @@ def eigs(
     kdim: int = 128,
     tol: float = 1e-6,
     maxiter: int = 20,
+    adjoint: bool = False,
     v0: Vector | None = None,
     callback: Callable | None = None,
     seed: int = 0,
@@ -98,10 +99,13 @@ def eigs(
     ||A x - mu x|| / ||x||, not the eigenvalue error (which is ~ the
     eigenvalue condition number times the residual for non-normal A).
 
-    v0: start vector; otherwise `space.rand(seed)`. check_every: test the
-    projected problem every so many columns during expansion and stop the
-    cycle once all nev wanted pairs converged (0 = only at kdim). Converged
-    leading Schur blocks are locked at each restart."""
+    adjoint: eigenpairs of the adjoint, through `op.rmatvec`. v0: start
+    vector; otherwise `space.rand(seed)`. check_every: test the projected
+    problem every so many columns during expansion and stop the cycle once
+    all nev wanted pairs converged (0 = only at kdim). Converged leading
+    Schur blocks are locked at each restart."""
+    if adjoint:
+        op = AdjointOperator(op)
     if v0 is None:
         v0 = space.rand(seed)
     v0, nrm = space.normalize(v0)

@@ -1,10 +1,11 @@
 """The exponential propagator M = exp(tau A): the eigensolve's matvec.
 
 matvec integrates the linearized Navier-Stokes equations over the horizon
-tau (nsteps * dt == tau exactly) about a frozen base flow. Eigenvalues of A
-are recovered as log(mu)/tau from Ritz values mu of M. Counterpart of
-`neklab_tpu.linops.exponential_propagator` (direct map; the chunked path
-only bounded the TPU compiler's program size and has no counterpart here).
+tau (nsteps * dt == tau exactly) about a frozen base flow; rmatvec is the
+EXACT discrete adjoint (see models/linearized.py). Eigenvalues of A are
+recovered as log(mu)/tau from Ritz values mu of M. Counterpart of
+`neklab_tpu.linops.exponential_propagator` (the chunked path only bounded
+the TPU compiler's program size and has no counterpart here).
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import torch
 
 from ..krylov.linop import LinearOperator
 from ..mesh.core import SemMesh
-from ..models.linearized import LinConfig, pressure_solvers, propagate, velocity_solvers
-from ..models.navier_stokes import _BDF, helmholtz_diag
+from ..models.linearized import (AdjointPropagator, LinConfig, _bdf3_diags,
+                                 make_adjoint_propagator, pressure_solvers, propagate,
+                                 velocity_solvers)
 from ..models.precond import build_e_preconditioner
 from ..utils.timestep import cfl_dt, clamp_cfl, horizon_steps
 
@@ -32,13 +34,22 @@ class ExponentialPropagator(LinearOperator):
         base_theta=None,
         tau: float = 1.0,
         cfl: float = 0.5,
+        dt: float | None = None,
+        adjoint_tol_factor: float = 0.1,
     ):
-        """The step is tau / ceil(tau / dt_cfl), dt_cfl from the CFL target
-        against the base flow, so nsteps * dt == tau exactly. The pressure
-        solves use the two-level E preconditioner and the exact
+        """The step is tau / ceil(tau / dt), with dt from the CFL target
+        against the base flow unless given, so nsteps * dt == tau exactly.
+        The pressure solves use the two-level E preconditioner and the exact
         neighbor-block E apply. Every solver of the matvec, pressure,
         velocity and scalar, one per BDF order (on the card each with its
-        captured CG graph), is built here once for every matvec."""
+        captured CG graph), is built here once for every matvec.
+
+        adjoint_tol_factor: the adjoint is the transpose of a forward
+        program whose vtol and ptol are scaled by this factor (default 10x
+        tighter): adjoint Ritz values are more sensitive to the inner solves'
+        truncation than direct ones (the reference's round-4 cylinder
+        study). 1.0 gives the exact transpose of the matvec's own program.
+        The adjoint, with its own solvers, is built at the first rmatvec."""
         self.mesh = mesh
         self.base_u = base_u
         self.base_theta = (
@@ -48,18 +59,19 @@ class ExponentialPropagator(LinearOperator):
                              device=mesh.device)
         )
         self.tau = float(tau)
-        self.dt, self.nsteps = horizon_steps(tau, cfl_dt(mesh, base_u, cfl=clamp_cfl(cfl)))
+        if dt is None:
+            dt = cfl_dt(mesh, base_u, cfl=clamp_cfl(cfl))
+        self.dt, self.nsteps = horizon_steps(tau, dt)
         self.cfg = dataclasses.replace(cfg, flow=dataclasses.replace(cfg.flow, dt=self.dt))
         self.pc_e = build_e_preconditioner(mesh)
         fc = self.cfg.flow
-        g0 = _BDF[min(fc.torder, 3)][0]
-        self.vdiag = helmholtz_diag(mesh, fc.viscosity, fc.rho * g0 / fc.dt, mesh.vmask)
-        self.tdiags = [
-            helmholtz_diag(mesh, fc.conductivity[i], g0 / fc.dt, mesh.tmask)
-            for i in range(fc.nscal)
-        ] or None
+        self.vdiag, self.tdiags = _bdf3_diags(mesh, fc, None, None)
         self.psolves = pressure_solvers(mesh, self.cfg, self.nsteps, self.pc_e)
         self.vsolves = velocity_solvers(mesh, self.cfg, self.nsteps, self.vdiag, self.tdiags)
+        f = float(adjoint_tol_factor)
+        self.cfg_adj = self.cfg if f == 1.0 else dataclasses.replace(
+            self.cfg, flow=dataclasses.replace(fc, vtol=fc.vtol * f, ptol=fc.ptol * f))
+        self._adjoint: AdjointPropagator | None = None
 
     def matvec(self, x: dict, stats: dict | None = None) -> dict:
         """stats: optional dict, filled as `propagate` fills it."""
@@ -70,7 +82,18 @@ class ExponentialPropagator(LinearOperator):
         )
         return {"u": u, "theta": theta}
 
-    def rmatvec(self, x: dict) -> dict:
-        raise NotImplementedError(
-            "ExponentialPropagator.rmatvec: the exact discrete adjoint is a later "
-            "ROADMAP item (port queue: adjoint, svd.py and transient growth)")
+    @property
+    def adjoint(self) -> AdjointPropagator:
+        """The exact discrete B-adjoint at `cfg_adj`'s tolerances, built (its
+        solvers and its recorded tape) at first use."""
+        if self._adjoint is None:
+            self._adjoint = make_adjoint_propagator(
+                self.mesh, self.cfg_adj, self.base_u, self.base_theta, self.nsteps,
+                pc_e=self.pc_e, vdiag=self.vdiag, tdiags=self.tdiags)
+        return self._adjoint
+
+    def rmatvec(self, x: dict, stats: dict | None = None) -> dict:
+        """stats: optional dict, filled by the adjoint's transposed solves
+        (`AdjointPropagator.__call__`)."""
+        u, theta = self.adjoint(x["u"], x["theta"], stats=stats)
+        return {"u": u, "theta": theta}

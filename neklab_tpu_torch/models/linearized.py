@@ -8,8 +8,19 @@ step as the nonlinear solver and the convection linearized,
 homogeneous Dirichlet BCs (the perturbation masks). `propagate` is the
 exponential-propagator matvec: a BDF1/BDF2 self-starting ramp, then BDF3
 steps in a Python loop. Counterpart of `neklab_tpu.models.linearized`
-(direct map only; the exact discrete adjoint, chunked and forced forms are
-later ROADMAP items).
+(the chunked and forced forms are later ROADMAP items).
+
+Adjoint: the EXACT discrete adjoint with respect to the mass-weighted inner
+product <u, v> = sum(u v bm1),
+
+    M* v = vmask . Bhat^-1 dssum( M^T (bm1 . v) ),
+
+as in the reference, which takes M^T from `jax.linear_transpose` of the
+jitted forward. Torch has no linear transpose; `make_adjoint_propagator`
+records `propagate` once on autograd's tape and runs the tape backward per
+call. Every solve on the tape is a `solvers.linear_solve`, whose backward
+re-solves with the same built-once CG, and dssum, the Helmholtz kernel and
+the E apply are their own backward (`tensor.linear`).
 """
 
 from __future__ import annotations
@@ -128,7 +139,9 @@ def step_lin(
     pstar = state.p  # incremental pressure
     nstar = alphas[0] * n_u + alphas[1] * state.nlag[0] + alphas[2] * state.nlag[1]
     bsum = betas[0] * state.u + betas[1] * state.ulag[0] + betas[2] * state.ulag[1]
-    rhs = (fc.rho / dt) * mesh.bm1 * bsum + nstar + stokes.grad_weak_t(mesh, pstar)
+    # the perturbation meets each mesh field in a product of its own: a
+    # product of constants made per step would be kept by autograd's tape
+    rhs = mesh.bm1 * bsum * (fc.rho / dt) + nstar + stokes.grad_weak_t(mesh, pstar)
 
     ustar = vsolve(rhs, torch.zeros_like(state.u), stats=stats)
 
@@ -144,7 +157,7 @@ def step_lin(
         tbsum = betas[0] * state.theta + betas[1] * state.tlag[0] + betas[2] * state.tlag[1]
         comps = []
         for i in range(cfg.nscal):
-            rhs_t = (1.0 / dt) * mesh.bm1 * tbsum[i] + ntstar[i]
+            rhs_t = mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i]
             comps.append(tsolves[i](rhs_t, torch.zeros_like(state.theta[i])))
         theta_new = torch.stack(comps)
     else:
@@ -197,6 +210,17 @@ def velocity_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, vdiag, tdiags) 
             for order in range(1, min(nsteps, tmax) + 1)}
 
 
+def _bdf3_diags(mesh: SemMesh, fc: FlowConfig, vdiag, tdiags):
+    """(vdiag, tdiags): the BDF3 Jacobi diagonals, each built when None."""
+    g0 = _BDF[min(fc.torder, 3)][0]
+    if vdiag is None:
+        vdiag = helmholtz_diag(mesh, fc.viscosity, fc.rho * g0 / fc.dt, mesh.vmask)
+    if tdiags is None:
+        tdiags = [helmholtz_diag(mesh, fc.conductivity[i], g0 / fc.dt, mesh.tmask)
+                  for i in range(fc.nscal)] or None
+    return vdiag, tdiags
+
+
 def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nsteps: int,
               pc_e=None, vdiag=None, tdiags=None, psolves=None, vsolves=None, stats=None):
     """Linear map M: (u0, theta0) -> (u, theta) after nsteps of the
@@ -211,13 +235,7 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     fc = cfg.flow
     state = pert_initial(mesh, cfg, u0, theta0)
     tmax = min(fc.torder, 3)
-    vdiag3 = vdiag if vdiag is not None else helmholtz_diag(
-        mesh, fc.viscosity, fc.rho * _BDF[tmax][0] / fc.dt, mesh.vmask
-    )
-    tdiags3 = tdiags if tdiags is not None else ([
-        helmholtz_diag(mesh, fc.conductivity[i], _BDF[tmax][0] / fc.dt, mesh.tmask)
-        for i in range(fc.nscal)
-    ] or None)
+    vdiag3, tdiags3 = _bdf3_diags(mesh, fc, vdiag, tdiags)
     ccache = sem.lin_convect_cache(mesh, base_u, base_theta if fc.nscal else None)
     if psolves is None:
         psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
@@ -230,3 +248,72 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
         state = step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
                          tsolves, conv_cache=ccache, stats=stats)
     return state.u, state.theta
+
+
+class AdjointPropagator:
+    """The exact discrete B-adjoint of `propagate`, (v_u, v_theta) ->
+    (w_u, w_theta) with w = vmask Bhat^-1 dssum( M^T (B v) ); built by
+    `make_adjoint_propagator`.
+
+    M^T is the backward of one recorded `propagate`: M is linear, so one
+    tape serves every call (`retain_graph`), the counterpart of tracing and
+    jitting the reference's transpose once. tape_bytes: device memory the
+    tape holds (None on the CPU)."""
+
+    def __init__(self, mesh: SemMesh, inputs, outputs, log: dict, tape_bytes):
+        self.mesh = mesh
+        self._inputs, self._outputs, self._log = inputs, outputs, log
+        self.tape_bytes = tape_bytes
+
+    def __call__(self, v_u, v_theta, stats: dict | None = None):
+        """stats: optional dict; every transposed solve appends its CG's
+        iteration count, under the forward solver's key ("helmholtz",
+        "pressure"), in the order the backward runs them (last step first)."""
+        mesh = self.mesh
+        # scale normalization (exact by linearity; the reference's
+        # make_adjoint_propagator): the seed bm1 * v is orders of magnitude
+        # smaller than v, and the transposed solves stop at the forward's
+        # ABSOLUTE tolerances, so the seed is rescaled to v's Euclidean size
+        # and the result scaled back
+        nv = torch.sqrt(torch.sum(v_u * v_u) + torch.sum(v_theta * v_theta))
+        iu, it = mesh.bm1 * v_u, mesh.bm1 * v_theta
+        ni = torch.sqrt(torch.sum(iu * iu) + torch.sum(it * it))
+        c = torch.where(ni > 0, nv / torch.clamp_min(ni, torch.finfo(ni.dtype).tiny), 1.0)
+        self._log.clear()
+        grads = torch.autograd.grad(self._outputs, self._inputs, grad_outputs=(c * iu, c * it),
+                                    retain_graph=True, allow_unused=True)
+        if stats is not None:
+            for key, counts in self._log.items():
+                stats.setdefault(key, []).extend(counts)
+        wu, wt = (torch.zeros_like(x) if g is None else g for g, x in zip(grads, self._inputs))
+        au = mesh.vmask * mesh.binv * sem.dssum(mesh, wu) / c
+        at = mesh.tmask * mesh.binv * sem.dssum(mesh, wt) / c
+        return au, at
+
+
+def make_adjoint_propagator(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, nsteps: int,
+                            pc_e=None, vdiag=None, tdiags=None) -> AdjointPropagator:
+    """The exact discrete B-adjoint of `propagate` at cfg's tolerances.
+
+    Builds its own solvers (one per BDF order, each with its CUDA graph on
+    the card) and records `propagate` once, from a zero input that requires
+    grad: every CG then exits at iteration 0, so recording runs no CG
+    iteration, only the step's other ops."""
+    fc = cfg.flow
+    vdiag, tdiags = _bdf3_diags(mesh, fc, vdiag, tdiags)
+    psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
+    vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag, tdiags)
+    shape = tuple(mesh.bm1.shape)
+    inputs = tuple(torch.zeros((lead,) + shape, dtype=mesh.dtype, device=mesh.device,
+                               requires_grad=True) for lead in (mesh.ndim, cfg.nscal))
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(mesh.device)
+        before = torch.cuda.memory_allocated(mesh.device)
+    log: dict = {}
+    with torch.enable_grad():
+        outputs = propagate(mesh, cfg, base_u, base_theta, *inputs, nsteps, pc_e=pc_e,
+                            vdiag=vdiag, tdiags=tdiags, psolves=psolves, vsolves=vsolves,
+                            stats=log)
+    tape_bytes = torch.cuda.memory_allocated(mesh.device) - before if on_card else None
+    return AdjointPropagator(mesh, inputs, outputs, log, tape_bytes)

@@ -14,8 +14,9 @@ import torch
 
 from ..mesh.core import SemMesh
 from ..ops import sem
+from ..ops.tensor import linear
 from . import stokes
-from .solvers import PCG, local_diagonal
+from .solvers import PCG, linear_solve, local_diagonal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,13 @@ _EXT = {
 }
 
 
+def _logger(stats: dict | None, key: str):
+    """Appends a CG's iteration count to stats[key]; None without stats."""
+    if stats is None:
+        return None
+    return lambda k: stats.setdefault(key, []).append(k)
+
+
 def helmholtz_diag(mesh: SemMesh, h1, h2, mask) -> torch.Tensor:
     """Jacobi diagonal of the masked assembled Helmholtz operator, as a
     consistent local-copies field (1 on Dirichlet DOFs)."""
@@ -77,8 +85,10 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
     which is Euclidean-symmetric on the whole local space and acts as the
     assembled masked Helmholtz operator on the consistent subspace. Its
     iteration is built once here and, on the card, captured as a CUDA graph
-    (`PCG`). stats: optional dict; each solve appends its CG's iteration
-    count to stats["helmholtz"]."""
+    (`PCG`); the CG runs through `linear_solve`, so a reverse pass re-solves
+    with it. stats: optional dict; each solve appends its CG's iteration
+    count to stats["helmholtz"], and so does each backward of a solve
+    recorded with that dict."""
     sqw = torch.sqrt(mesh.vmult)
     msq = mask * sqw
 
@@ -86,6 +96,15 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
         t = sem.dssum(mesh, sqw * y)
         hv = sem.dssum(mesh, sem.helmholtz_local(mesh, mask * t, h1, h2))
         return torch.addcmul(y, msq, hv - t)
+
+    def consistent(y):
+        """P y = sqw * dssum(sqw * y): the projection onto the consistent
+        subspace, which op keeps apart from its complement (where op is the
+        identity). The right-hand side b lies in it; a backward's cotangent
+        does not, and its complement part, which the transposed dssum of b
+        discards anyway, would slow the Jacobi CG (its preconditioned
+        spectrum there is 1/diag)."""
+        return sqw * sem.dssum(mesh, sqw * y)
 
     like = torch.zeros(torch.broadcast_shapes(mask.shape, diag.shape), dtype=mesh.dtype,
                        device=mesh.device)
@@ -97,9 +116,7 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
         if b.shape != like.shape:
             raise ValueError(f"helmholtz solve: right-hand side {tuple(b.shape)}, the solver "
                              f"was built for {tuple(like.shape)}")
-        y, k, _ = cg.solve(b, tol=tol, maxiter=maxiter)
-        if stats is not None:
-            stats.setdefault("helmholtz", []).append(k)
+        y = linear_solve(cg, b, tol, maxiter, project=consistent, log=_logger(stats, "helmholtz"))
         return ub + mask * (y / sqw)
 
     return solve
@@ -120,16 +137,21 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
     """Returns dp = solve(rhs, x0=None) for the E operator at fixed dt/g0.
 
     For enclosed flows (pure-Neumann pressure) the constant nullspace is
-    projected out of the operator, the preconditioner and the RHS. With a
+    projected out of the operator, the preconditioner and the RHS, and out
+    of the CG's residual at every update (`PCG(project=)`). With a
     preconditioner, E is applied through its exact neighbor-block form, and
     the CG runs on element-first copies of the fields ([nel, np2], the
     layout of `pc.e_apply_ef` and `pc.apply_ef`). The CG iteration is built
-    once per solver and, on the card, captured as a CUDA graph (`PCG`)."""
+    once per solver and, on the card, captured as a CUDA graph (`PCG`); the
+    CG runs through `linear_solve`, so a reverse pass re-solves with it. E
+    is symmetric, and its neighbor-block apply is one too under autograd
+    (`tensor.linear`), so the warm start's backward is E again and not
+    an atomic scatter-add."""
     pure = mesh.p_fixed
     proj = stokes.project_onto_range if pure else (lambda q: q)
 
     if pc is not None:
-        e_apply = lambda q: pc.e_apply_ef(q, dt_over_g0)
+        e_apply = lambda q: linear(lambda v: pc.e_apply_ef(v, dt_over_g0), q)
         precond = lambda r: proj(pc.apply_ef(proj(r)))
         to_ef = lambda q: q.reshape(-1, mesh.nel).T.contiguous()
     else:
@@ -140,22 +162,22 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
     def op(dp):
         return proj(e_apply(proj(dp)))
 
-    cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond)
+    cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond, project=proj if pure else None)
 
     def solve(rhs, x0=None, stats=None):
         """x0: optional warm start (e.g. the previous step's increment),
-        entered as the shift dp = x0 + delta, E delta = rhs - E x0.
-        stats: optional dict; the CG's iteration count is appended to
-        stats["pressure"]."""
+        entered as the shift dp = x0 + delta, E delta = rhs - E x0, so it
+        reaches the solve through the right-hand side and the map stays
+        linear. stats: optional dict; the CG's iteration count is appended
+        to stats["pressure"] (and a recorded solve's backward appends its
+        own)."""
         shape = rhs.shape
         rhs = to_ef(rhs)
         if x0 is not None:
             x0 = proj(to_ef(x0))
             rhs = rhs - e_apply(x0)
-        rhs_p = proj(rhs)
-        dp, k, _ = cg.solve(proj(rhs_p), tol=cfg.ptol, maxiter=cfg.pmaxit)
-        if stats is not None:
-            stats.setdefault("pressure", []).append(k)
+        dp = linear_solve(cg, proj(rhs), cfg.ptol, cfg.pmaxit, project=proj if pure else None,
+                          log=_logger(stats, "pressure"))
         if x0 is not None:
             dp = dp + x0
         if pc is not None:

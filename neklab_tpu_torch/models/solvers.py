@@ -12,16 +12,22 @@ bound the step time (PERF.md). The velocity and pressure solvers both build
 their `PCG` once and replay it; the Helmholtz kernel counts its runs on the
 device, so the replays count too.
 
-The reference wraps its CG in `lax.custom_linear_solve` only so the solve
-can be transposed (exact discrete adjoints); the port runs `PCG` directly
-until the adjoint is ported.
+The reference wraps its CG in `lax.custom_linear_solve(symmetric=True)` so
+that the solve can be transposed (exact discrete adjoints). `linear_solve`
+is the port's counterpart: the solve is a symmetric linear map of its
+right-hand side, and under autograd its backward runs the same built-once
+`PCG`, at the same tolerance and with the same graph, on the cotangent. The
+iterations are re-solved, never differentiated.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+
+from ..ops.tensor import linear
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,11 +38,20 @@ class PCG:
     """Preconditioned CG for one operator and preconditioner, on buffers
     shaped like `like`. With a CUDA `like`, the iteration is captured as a
     CUDA graph at construction (after one warm-up run) and replayed by
-    `solve`; on the CPU it runs eagerly."""
+    `solve`; on the CPU it runs eagerly.
 
-    def __init__(self, op: Callable, like: torch.Tensor, precond: Callable | None = None):
+    project: for an operator with a nullspace, the projection onto its range,
+    applied to the residual at every update (Nek5000's `ortho` in its
+    pressure CG). Without it the residual keeps the nullspace part that
+    rounding adds, which no iteration can remove: in float32 that part
+    (~1e-8 of the right-hand side) stalls a CG asked for a tighter residual
+    until it breaks down."""
+
+    def __init__(self, op: Callable, like: torch.Tensor, precond: Callable | None = None,
+                 project: Callable | None = None):
         self.op = op
         self.precond = precond if precond is not None else (lambda r: r)
+        self.project = project
         # every buffer is set by `solve` before the first iteration reads it
         self.x, self.r, self.z, self.p = (torch.empty_like(like) for _ in range(4))
         self.rz, self.rr = (torch.empty((), dtype=like.dtype, device=like.device) for _ in range(2))
@@ -59,6 +74,8 @@ class PCG:
         alpha = self.rz / torch.clamp_min(_dot(self.p, ap), 1e-300)
         self.x.addcmul_(alpha, self.p)
         self.r.addcmul_(alpha, ap, value=-1.0)
+        if self.project is not None:
+            self.r.copy_(self.project(self.r))
         self.z.copy_(self.precond(self.r))
         rz_new = _dot(self.r, self.z)
         beta = rz_new / torch.clamp_min(self.rz, 1e-300)
@@ -69,22 +86,30 @@ class PCG:
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None, tol: float = 1e-8,
               maxiter: int = 500):
         """-> (x, iterations, final ||r||^2). Stops at ||r||_2 <= tol
-        (absolute, Euclidean), Nek's residual-based rule."""
+        (absolute, Euclidean), Nek's residual-based rule. A non-finite
+        residual (a non-finite right-hand side, or a breakdown) raises
+        instead of returning the iterate."""
         if x0 is None:
             self.x.zero_()
             self.r.copy_(b)
         else:
             self.x.copy_(x0)
             self.r.copy_(b - self.op(x0))
+        if self.project is not None:
+            self.r.copy_(self.project(self.r))
         self.z.copy_(self.precond(self.r))
         self.p.copy_(self.z)
         self.rz.copy_(_dot(self.r, self.z))
         self.rr.copy_(_dot(self.r, self.r))
         k = 0
-        while k < maxiter and float(self.rr) > tol * tol:
+        while True:
+            rr = float(self.rr)
+            if not math.isfinite(rr):
+                raise FloatingPointError(f"CG: residual norm^2 {rr} after {k} iterations")
+            if k == maxiter or rr <= tol * tol:
+                return self.x.clone(), k, self.rr.clone()
             self._step()
             k += 1
-        return self.x.clone(), k, self.rr.clone()
 
 
 def pcg_info(
@@ -99,6 +124,26 @@ def pcg_info(
 
     Stops at ||r||_2 <= tol (absolute, Euclidean), Nek's residual-based rule."""
     return PCG(op, b, precond).solve(b, x0=x0, tol=tol, maxiter=maxiter)
+
+
+def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
+                 project: Callable | None = None, log: Callable | None = None) -> torch.Tensor:
+    """x = cg.solve(b) as a linear map of b, for a Euclidean-symmetric
+    `cg.op`. The backward solves the cotangent with the same CG: the
+    reference's `custom_linear_solve(..., symmetric=True)`. project: a
+    symmetric projection that commutes with cg.op and whose range holds
+    every b (the pressure's range of E, the velocity's consistent
+    subspace); the map is then solve o project, and the backward projects
+    the cotangent before it solves. log(k) receives each solve's iteration
+    count, the backward's too."""
+
+    def solve(rhs):
+        x, k, _ = cg.solve(rhs, tol=tol, maxiter=maxiter)
+        if log is not None:
+            log(k)
+        return x
+
+    return linear(solve, b, None if project is None else (lambda g: solve(project(g))))
 
 
 def local_diagonal(op_local: Callable, shape, dtype, ndim_pts: int, device=None) -> torch.Tensor:

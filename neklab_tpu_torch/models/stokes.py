@@ -49,7 +49,9 @@ def pressure_correct_velocity(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> to
     gp = grad_weak_t(mesh, dp)  # [ndim, *lead, pts..., nel]
     nlead = gp.dim() - mesh.vmask.dim()
     vmask = mesh.vmask.reshape(mesh.vmask.shape[:1] + (1,) * nlead + mesh.vmask.shape[1:])
-    return dt_over_g0 * mesh.binv * vmask * sem.dssum(mesh, gp)
+    # the field meets each mesh field in a product of its own (a product of
+    # constants made per call would be kept by autograd's tape)
+    return sem.dssum(mesh, gp) * vmask * mesh.binv * dt_over_g0
 
 
 def e_op(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> torch.Tensor:

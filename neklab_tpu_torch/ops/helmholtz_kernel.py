@@ -9,7 +9,9 @@ its design and what bounds it.
 
 `helmholtz2d` launches the kernel for CUDA tensors, always: a build or
 launch failure raises. It uses `helmholtz2d_plain` only because a tensor
-lies on the CPU.
+lies on the CPU. Under autograd its backward is the kernel again, on the
+cotangent (H is symmetric per element), so a reverse pass on the card runs
+the kernel too.
 
 The kernel counts its own runs in a 64-bit counter in device memory, one
 per card, so a run replayed from a CUDA graph counts like a launch from the
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .tensor import apply_r, apply_s
+from .tensor import apply_r, apply_s, linear
 
 NMAX = 12  # largest n = order + 1 the kernel takes
 
@@ -45,12 +47,24 @@ def helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2):
 def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2):
     """Fused local Helmholtz apply on [..., n, n, nel] fields.
 
-    CPU tensors: `helmholtz2d_plain`. CUDA tensors: the kernel, launched on
-    the current stream without synchronizing, into a fresh output; the
-    launcher picks its tile from the shape and the card."""
+    CPU tensors: `helmholtz2d_plain`, which autograd differentiates as it
+    does any torch code. CUDA tensors: the kernel, launched on the current
+    stream without synchronizing, into a fresh output; the launcher picks
+    its tile from the shape and the card. H is symmetric per element, so
+    when u takes part in autograd the backward launches the kernel on the
+    cotangent with the same geometry (`tensor.linear`); the geometry and
+    D are constants and may not require grad."""
     if u.device.type == "cpu":
         return helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2)
     _check(u, d, g00, g01, g11, bm1)
+    if any(t.requires_grad for t in (d, g00, g01, g11, bm1)):
+        raise ValueError("helmholtz2d: the kernel differentiates only in u; D and the "
+                         "geometry may not require grad")
+    return linear(lambda v: _launch(v.contiguous(), d, g00, g01, g11, bm1, h1, h2), u)
+
+
+def _launch(u, d, g00, g01, g11, bm1, h1, h2):
+    """One run of the kernel on checked CUDA tensors, into a fresh output."""
     from . import _build
 
     n, nel = d.shape[0], u.shape[-1]

@@ -12,11 +12,13 @@ tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..mesh.core import SemMesh
 from . import helmholtz_kernel
-from .tensor import grad_rst, grad_rst_t, interp_nd, interp_nd_t, tsum
+from .tensor import grad_rst, grad_rst_t, interp_nd, interp_nd_t, linear, tsum
 
 __all__ = [
     "dssum",
@@ -45,9 +47,17 @@ def dssum(mesh: SemMesh, f: torch.Tensor) -> torch.Tensor:
     through `mesh.dss_copies` and sums them (pad, gather, sum: three
     launches, and deterministic, unlike an atomic scatter-add). It replaces
     the reference's structured, face-pair and scatter-add forms, which were
-    shaped by what XLA fuses on the TPU."""
+    shaped by what XLA fuses on the TPU.
+
+    Q Q^T is symmetric, so under autograd the backward is `dssum` of the
+    cotangent: deterministic, unlike the atomic `index_add_` that autograd
+    would make of the gather."""
     if f.numel() == 0:
         return f
+    return linear(functools.partial(_dssum, mesh), f)
+
+
+def _dssum(mesh: SemMesh, f: torch.Tensor) -> torch.Tensor:
     lead = f.shape[: f.dim() - mesh.gidx.dim()]
     flat = torch.nn.functional.pad(f.reshape(lead + (-1,)), (0, 1))  # zero slot at the end
     copies = mesh.dss_copies

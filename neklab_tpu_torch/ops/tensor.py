@@ -9,18 +9,48 @@ contraction batched over every other axis: with the contracted axis folded
 against the (contiguous) axes after it, it is one `torch.matmul` (a single
 batched GEMM, no transposed copy). With TF32 off (see the package
 `__init__`) these run in true float32 on the card.
+
+`linear` applies a linear map whose transpose the caller gives, or which is
+its own transpose (dssum, the Helmholtz kernel, a CG solve, the E apply),
+so that autograd's backward is that map and not the derivative of its
+insides: the port's counterpart of `custom_linear_solve(...,
+symmetric=True)` and of transposing a symmetric primitive in JAX.
 """
 
 from __future__ import annotations
 
 import functools
 import operator
+from typing import Callable
 
 import torch
 
 __all__ = [
     "apply_r", "apply_s", "apply_t", "grad_rst", "grad_rst_t", "interp_nd", "interp_nd_t", "tsum",
+    "linear",
 ]
+
+
+class _Linear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op, transpose):
+        ctx.transpose = transpose
+        return op(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.transpose(g), None, None
+
+
+def linear(op: Callable, x: torch.Tensor, transpose: Callable | None = None) -> torch.Tensor:
+    """op(x) for a linear op. When x takes part in autograd, the backward
+    applies `transpose` (Euclidean; op itself when None, for a symmetric op)
+    to the cotangent, so a reverse pass reuses op as it is (its kernel, its
+    built-once CG) instead of differentiating its insides; otherwise this
+    is op(x)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Linear.apply(x, op, op if transpose is None else transpose)
+    return op(x)
 
 
 def tsum(terms):

@@ -1,6 +1,8 @@
 """The port's code that runs only on the card: the CUDA kernel against its
-plain torch twin, its run counter in device memory, and the CG iterations
-captured as CUDA graphs against the same CG on CPU tensors.
+plain torch twin, its run counter in device memory, the CG iterations
+captured as CUDA graphs against the same CG on CPU tensors, and the
+backward passes of the exact discrete adjoint (the kernel's, the solves',
+the recorded propagator's) against the same on CPU tensors.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -177,3 +179,94 @@ def test_graphed_pressure_cg_matches_cpu(card):
             out[dev] = solve(rhs, stats=stats[dev])
         assert stats[card] == stats["cpu"] and stats["cpu"]["pressure"][0] > 3
         assert rel(out[card], out["cpu"]) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the exact discrete adjoint: backward passes on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, nel, lead", EDGE_CASES)
+def test_helmholtz2d_backward_is_the_kernel(card, n, nel, lead, dtype):
+    """On a CUDA tensor that requires grad the kernel's output has a
+    grad_fn, and its backward launches the kernel once on the cotangent:
+    against the twin's autograd backward on the same inputs."""
+    u, *args = random_args(n, nel, lead, dtype, card)
+    g = random_args(n, nel, lead, dtype, card, seed=1)[0]
+    u.requires_grad_(True)
+    out = helmholtz_kernel.helmholtz2d(u, *args)
+    assert out.grad_fn is not None
+    helmholtz_kernel.reset_launches(card)
+    (vjp,) = torch.autograd.grad(out, u, g)
+    assert helmholtz_kernel.launches(card) == 1
+    (ref,) = torch.autograd.grad(helmholtz_kernel.helmholtz2d_plain(u, *args), u, g)
+    assert rel(vjp, ref) <= TOL[dtype]
+
+
+def test_helmholtz2d_rejects_geometry_that_requires_grad(card):
+    u, d, *rest = random_args(9, 120, (2,), torch.float64, card)
+    with pytest.raises(ValueError):
+        helmholtz_kernel.helmholtz2d(u, d.requires_grad_(True), *rest)
+
+
+def _solve_of(which, m):
+    """(the solver's right-hand-side shape, a linear map rhs -> solution
+    taking a stats dict) of the velocity or pressure solver on mesh m."""
+    if which == "velocity":
+        solve = ns.make_helmholtz_solver(m, H1, H2, m.vmask, ns.helmholtz_diag(m, H1, H2, m.vmask),
+                                         1e-10, 500)
+        shape = (2,) + tuple(m.bm1.shape)
+        return shape, lambda r, stats: solve(r, torch.zeros_like(r), stats=stats)
+    cfg = ns.FlowConfig(viscosity=H1, dt=DT, ptol=1e-10, pmaxit=500)
+    solve = ns.make_pressure_solver(m, cfg, DT / (11 / 6), pc=build_e_preconditioner(m))
+    return tuple(m.bm2.shape), lambda r, stats: solve(r, stats=stats)
+
+
+@pytest.mark.parametrize("which", ["velocity", "pressure"])
+def test_solve_backward_matches_cpu(card, which):
+    """The solves' backward (a re-solve with the built-once CG: a graph
+    replay on the card) against the same backward on CPU tensors."""
+    rng = np.random.default_rng(8)
+    out, stats, data = {}, {}, None
+    for dev in (card, "cpu"):
+        m = box_mesh((8, 4), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        shape, fn = _solve_of(which, m)
+        if data is None:
+            data = rng.standard_normal(shape), rng.standard_normal(shape)
+        r = torch.as_tensor(data[0], device=dev).requires_grad_(True)
+        stats[dev] = {}
+        (out[dev],) = torch.autograd.grad(fn(r, stats[dev]), r, torch.as_tensor(data[1], device=dev))
+    counts = next(iter(stats["cpu"].values()))
+    assert stats[card] == stats["cpu"] and len(counts) == 2 and min(counts) > 3
+    assert rel(out[card], out["cpu"]) <= 1e-10
+
+
+def test_rmatvec_matches_cpu(card):
+    """The adjoint propagator on the card (kernel, graphed CGs, the recorded
+    tape) against the CPU, f64: the Poiseuille Re=500 case of chip_smoke
+    phase 3. The kernel runs once per transposed velocity CG iteration."""
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.models.linearized import LinConfig
+
+    props = {}
+    for dev in (card, "cpu"):
+        m = box_mesh((4, 5), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        cfg = LinConfig(flow=ns.FlowConfig(viscosity=1 / 500, dt=1e-2, vtol=1e-12, ptol=1e-12))
+        y = m.x[1]
+        props[dev] = (m, ExponentialPropagator(m, cfg, torch.stack([1 - y**2, 0 * y]), tau=0.5))
+    m = props["cpu"][0]
+    u = np.random.default_rng(11).standard_normal((2,) + tuple(m.bm1.shape))
+    u = m.vmask * sem.dsavg(m, torch.as_tensor(u))
+    u = u / sem.mass_dot(m, u, u).sqrt()
+    th = torch.zeros((0,) + tuple(m.bm1.shape), dtype=torch.float64)
+    out, stats = {}, {}
+    for dev, (_, prop) in props.items():
+        prop.adjoint  # build and record outside the count
+        helmholtz_kernel.reset_launches(card)
+        stats[dev] = {}
+        out[dev] = prop.rmatvec({"u": u.to(dev), "theta": th.to(dev)}, stats=stats[dev])["u"]
+        if dev == card:
+            assert helmholtz_kernel.launches(card) == sum(stats[dev]["helmholtz"])
+    assert props[card][1].adjoint.tape_bytes > 0
+    assert float((out[card].cpu() - out["cpu"]).abs().max()) <= 1e-9

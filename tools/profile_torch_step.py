@@ -1,12 +1,17 @@
 """Where the time of one linearized step goes on a CUDA card, for the port
 (neklab_tpu_torch), f32.
 
-    python3 tools/profile_torch_step.py [--cases re7500,box2d] [--nsteps 20]
+    python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint]
+                                        [--nsteps 20]
 
 Cases: `re7500` is the Poiseuille Re=7500 `medium` propagator of
-chip_smoke.py phase 6 (the main path; dt as ExponentialPropagator derives
-it), `box2d` the box2d 131k propagator of phase 5. For each, from a
-B-normalized state (the sustained protocol):
+chip_smoke.py phases 6 and 7 (the main paths; dt as ExponentialPropagator
+derives it), `box2d` the box2d 131k propagator of phase 5. A case with
+`-adjoint` profiles the same propagator's exact adjoint instead (an
+`AdjointPropagator` recorded over the window's `nsteps` steps, at
+ExponentialPropagator's adjoint tolerances, 10x tighter); its "step" is one
+step of the backward pass. For each, from a B-normalized state (the
+sustained protocol):
   * host ms/step of three unprofiled windows of `nsteps` steps;
   * velocity (Helmholtz) and pressure (E) CG iterations per step, as the
     solvers of that propagate report them (`propagate(..., stats=)`);
@@ -22,6 +27,7 @@ One JSON line per case. Needs a CUDA card; imports no jax.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -38,7 +44,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
 
 
 def build_case(name, dev):
-    """-> (mesh, cfg, base_u, pc_e, vdiag, psolves, vsolves) for `propagate`."""
+    """-> (mesh, cfg, cfg_adj, base_u, pc_e, vdiag, psolves, vsolves) for
+    `propagate` and `make_adjoint_propagator`."""
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.models.linearized import LinConfig, pressure_solvers, velocity_solvers
@@ -58,28 +65,38 @@ def build_case(name, dev):
     base_u = torch.stack([1 - y**2, 0 * y])
     if name == "re7500":  # the main path's propagator: dt from the CFL target
         op = ExponentialPropagator(mesh, LinConfig(flow=fc), base_u, tau=0.5, cfl=0.5)
-        return mesh, op.cfg, base_u, op.pc_e, op.vdiag, op.psolves, op.vsolves
+        return mesh, op.cfg, op.cfg_adj, base_u, op.pc_e, op.vdiag, op.psolves, op.vsolves
     # box2d: bench.py's fixed dt, set up as ExponentialPropagator would
     cfg = LinConfig(flow=fc)
+    cfg_adj = LinConfig(flow=dataclasses.replace(fc, vtol=0.1 * fc.vtol, ptol=0.1 * fc.ptol))
     pc = build_e_preconditioner(mesh)
     vdiag = helmholtz_diag(mesh, fc.viscosity, (11 / 6) / fc.dt, mesh.vmask)
-    return (mesh, cfg, base_u, pc, vdiag, pressure_solvers(mesh, cfg, 3, pc),
+    return (mesh, cfg, cfg_adj, base_u, pc, vdiag, pressure_solvers(mesh, cfg, 3, pc),
             velocity_solvers(mesh, cfg, 3, vdiag, None))
 
 
 def profile_case(name, dev, nsteps):
     from torch.profiler import ProfilerActivity, profile
 
-    from neklab_tpu_torch.models.linearized import propagate
+    from neklab_tpu_torch.models.linearized import make_adjoint_propagator, propagate
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
     from neklab_tpu_torch.ops import sem
 
-    mesh, cfg, base_u, pc, vdiag, psolves, vsolves = build_case(name, dev)
+    base, _, kind = name.partition("-")
+    mesh, cfg, cfg_adj, base_u, pc, vdiag, psolves, vsolves = build_case(base, dev)
     th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+    tape_bytes = None
+    if kind == "adjoint":
+        adj = make_adjoint_propagator(mesh, cfg_adj, base_u, th, nsteps, pc_e=pc, vdiag=vdiag)
+        tape_bytes = adj.tape_bytes
+        apply = lambda u, stats: adj(u, th, stats=stats)[0]
+    else:
+        apply = lambda u, stats: propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc,
+                                           vdiag=vdiag, psolves=psolves, vsolves=vsolves,
+                                           stats=stats)[0]
 
     def run(u, stats=None):
-        u = propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc, vdiag=vdiag,
-                      psolves=psolves, vsolves=vsolves, stats=stats)[0]
+        u = apply(u, stats)
         return u / sem.mass_dot(mesh, u, u).sqrt()
 
     gen = torch.Generator(device=dev)
@@ -112,7 +129,7 @@ def profile_case(name, dev, nsteps):
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:12]
     return {
         "case": name, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": cfg.flow.dt,
-        "nsteps": nsteps,
+        "nsteps": nsteps, "tape_bytes": tape_bytes,
         "ms_per_step": walls,
         "cg_iters_per_step": {k: sum(v) / len(v) for k, v in stats.items()},
         "helmholtz2d_runs_per_step": runs,
@@ -128,7 +145,7 @@ def profile_case(name, dev, nsteps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cases", default="re7500,box2d")
+    ap.add_argument("--cases", default="re7500,box2d,re7500-adjoint,box2d-adjoint")
     ap.add_argument("--nsteps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
