@@ -3,12 +3,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, checks each
-against its plain torch twin, and drives the port's two main paths through
-the user entry points: the direct modal-stability eigensolve (box_mesh ->
+against its plain torch twin, and drives the port's main paths through the
+user entry points: the direct modal-stability eigensolve (box_mesh ->
 ExponentialPropagator -> flow_vector_space ->
-linear_stability_analysis_fixed_point) and transient growth, whose Lanczos
+linear_stability_analysis_fixed_point), transient growth, whose Lanczos
 SVD runs the exact discrete adjoint (... ->
-transient_growth_analysis_fixed_point). Phases:
+transient_growth_analysis_fixed_point), and the cylinder-wake pipeline:
+a nonlinear spin-up, a Newton-Krylov base flow and its eigensolve
+(annulus_mesh -> advance -> FixedPointSystem ->
+newton_fixed_point_iteration -> ExponentialPropagator ->
+linear_stability_analysis_fixed_point). Phases:
 
   0 device   the card, its power limit, TF32 off
   1 build    nvcc -> neklab_tpu_torch/build/
@@ -23,14 +27,23 @@ transient_growth_analysis_fixed_point). Phases:
   5 box2d    box2d 131k propagator, f32: ms/step sustained and floor, and
              the adjoint's ms/step and tape bytes
   6 re7500   Poiseuille Re=7500 `medium` eigensolve, f32 (the direct path)
+  3n nonlinear  the nonlinear step on the card vs the CPU, f64, on a small
+             cylinder annulus (inflow lift, pressure pinned at the outflow):
+             `advance`; the exact Jacobian's matvec (forward mode through
+             `advance`) vs a central difference of it; the frozen
+             Jacobian's matvec; the kernel's device counter vs the CG counts
   7 growth   Poiseuille Re=7500 `medium` transient growth, f32 (the adjoint
              path): s per matvec and per rmatvec, the triplet identity
+  8 cylinder the cylinder wake at Re=50, `medium` (examples/
+             cylinder_stability.py), f32: 8000 spin-up steps, Newton to
+             |F| < 2e-4, the eigensolve at tau = 1; |mu_1| beside the
+             reference's oracle 1.0156 +- 1e-4
 
-Phase 4 runs in a second process (this script with `--oracle`) beside
-phases 6 and 7: the eigensolves are bound by the host's launch rate, one
-core each, and leave the card idle most of the time, so side by side they
-take the time of the longer one. The script uses one card: it makes only
-the first visible card visible to itself. Every phase asserts; any failure
+Phases 4 and 8 run in processes of their own (this script with `--oracle`
+and `--cylinder`) beside phases 6 and 7: the solves are bound by the
+host's launch rate, one core each, and leave the card idle most of the
+time, so side by side they take the time of the longest. The script uses
+one card: it makes only the first visible card visible to itself. Every phase asserts; any failure
 raises and the exit code is non-zero. The last line on success is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 Without a CUDA card it fails at once.
@@ -291,6 +304,96 @@ def parity_phase(dev):
           tape_bytes=prop_c.adjoint.tape_bytes, nsteps=prop_c.nsteps, cg_iters=stats)
 
 
+def cylinder_lift(mesh):
+    """The free stream (1, 0) outside the cylinder r = 0.5: the masks keep it
+    on the inflow boundary (examples/cylinder_stability.py)."""
+    r = torch.sqrt(mesh.x[0] ** 2 + mesh.x[1] ** 2)
+    free = (r > 0.5 + 1e-8).to(mesh.dtype)
+    return torch.stack([free, torch.zeros_like(free)]), r
+
+
+def nonlinear_phase(dev):
+    """Phase 3n: the nonlinear stepper on the card against the CPU, f64, on a
+    small cylinder annulus with an inflow-outflow outer boundary (the lift
+    applied through the kernel, the pressure pinned at the outflow):
+    20 steps of `advance` (rel <= 1e-12); the exact Jacobian's matvec of a
+    FixedPointSystem (forward mode through `advance`: every linear piece,
+    the kernel and the graphed CGs included, maps the tangent with itself)
+    against a central difference of `advance` on the card; the frozen
+    Jacobian's matvec card vs CPU. The kernel's device counter must rise
+    by the velocity CG iterations the stats report plus two per step, the
+    lift and the warm start's operator apply; in the forward-mode matvec
+    the tangent's solves count beside the primal's, and so does the warm
+    start's apply to the tangent, while the lift is a constant with no
+    tangent (three per step)."""
+    from neklab_tpu_torch.krylov.space import tree_axpby
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+
+    t0 = time.time()
+    fc = ns.FlowConfig(viscosity=1 / 50, dt=1e-2, vtol=1e-12, ptol=1e-12)
+    nsteps = 20
+    out, runs, stats, systems = {}, {}, {}, {}
+    for d in (dev, "cpu"):
+        mesh = annulus_mesh(3, 8, r_in=0.5, r_out=4.0, order=5, grading=1.3, outer_bc="vO",
+                            shift=0.2, device=d)
+        ub, r = cylinder_lift(mesh)
+        ramp = 1 - torch.exp(-3.0 * (r - 0.5))
+        u0 = mesh.vmask * torch.stack([ramp, 0 * ramp]) + (1 - mesh.vmask) * ub
+        # the solvers (and their captures, which run the kernel) before the window
+        orders = ns.bdf_orders(fc, nsteps)
+        psolves = ns.pressure_solvers(mesh, fc, orders, build_e_preconditioner(mesh))
+        vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
+        stats[d] = {}
+        n0 = hk.launches(dev)
+        out[d] = ns.advance(mesh, fc, ns.initial_state(mesh, fc, u=u0), nsteps, ub=ub,
+                            psolves=psolves, vsolves=vsolves, stats=stats[d])
+        runs[d] = hk.launches(dev) - n0
+        systems[d] = (mesh, FixedPointSystem(mesh, LinConfig(flow=fc), tau=0.1, ub=ub, dt=fc.dt,
+                                             exact_jacobian=True),
+                      FixedPointSystem(mesh, LinConfig(flow=fc), tau=0.1, ub=ub, dt=fc.dt))
+    adv_rel = {k: rel(getattr(out[dev], k).cpu(), getattr(out["cpu"], k)) for k in ("u", "p")}
+    assert stats[dev] == stats["cpu"], (stats[dev], stats["cpu"])
+    assert max(adv_rel.values()) <= 1e-12, adv_rel
+    assert runs[dev] == sum(stats[dev]["helmholtz"]) + 2 * nsteps, (runs[dev], stats[dev])
+
+    # the Jacobians about the advanced state, on a B-normalized conforming dx
+    mesh_h = systems["cpu"][0]
+    rng = np.random.default_rng(13)
+    du = mesh_h.vmask * sem.dsavg(mesh_h, torch.as_tensor(
+        rng.standard_normal((2,) + tuple(mesh_h.bm1.shape))))
+    du = du / sem.mass_dot(mesh_h, du, du).sqrt()
+    th = torch.zeros((0,) + tuple(mesh_h.bm1.shape), dtype=torch.float64)
+    x = {d: {"u": out["cpu"].u.to(d), "theta": th.to(d)} for d in (dev, "cpu")}
+    dx = {d: {"u": du.to(d), "theta": th.to(d)} for d in (dev, "cpu")}
+    exact = systems[dev][1]
+    jac = exact.jacobian(x[dev])
+    jacobian_nsteps = next(iter(exact.derived.values())).nsteps
+    ex_stats = {}
+    n0 = hk.launches(dev)
+    jv = jac.matvec(dx[dev], stats=ex_stats)["u"] + dx[dev]["u"]
+    jv_runs = hk.launches(dev) - n0
+    eps = 1e-4
+    plus = exact.advance_map(tree_axpby(1.0, x[dev], eps, dx[dev]))["u"]
+    minus = exact.advance_map(tree_axpby(1.0, x[dev], -eps, dx[dev]))["u"]
+    fd = (plus - minus) / (2 * eps)
+    jv_fd_rel = rel(jv, fd)
+    assert jv_fd_rel <= 1e-6, jv_fd_rel
+    assert jv_runs == sum(ex_stats["helmholtz"]) + 3 * jacobian_nsteps, (jv_runs, ex_stats)
+    fz = {d: systems[d][2].jacobian(x[d]).matvec(dx[d])["u"] for d in (dev, "cpu")}
+    frozen_diff = float((fz[dev].cpu() - fz["cpu"]).abs().max())
+    assert frozen_diff <= 1e-9, frozen_diff
+    phase("parity_nonlinear", t0, advance_rel=adv_rel, advance_kernel_runs=runs[dev],
+          advance_cg_iters=stats[dev], exact_jvp_vs_central_difference_rel=jv_fd_rel,
+          exact_jvp_kernel_runs=jv_runs, exact_jvp_cg_iters=ex_stats,
+          frozen_matvec_max_abs_diff=frozen_diff, nsteps=nsteps, jacobian_nsteps=jacobian_nsteps)
+
+
 def oracle_phase(dev):
     """Phase 4: Poiseuille Re=500 eigenvalues on the card, f64, against the
     Orr-Sommerfeld/shear-mode oracle, then the adjoint's two leading ones
@@ -523,6 +626,91 @@ def growth_phase(dev, mu1: complex) -> tuple[int, int]:
     return launches, sum(op.runs["rmatvec"])
 
 
+ORACLE_MU1, ORACLE_BAND = 1.0156, 1e-4  # the reference's cylinder Re=50 oracle (BASELINE.md)
+
+
+def cylinder_phase(dev, nspin: int = 8000, kdim: int = 64, maxiter: int = 12) -> dict:
+    """Phase 8: the cylinder wake at Re=50, `medium` preset
+    (examples/cylinder_stability.py:56-99), f32, through the user entry
+    points: `annulus_mesh` (160 elements, order 6, 'vO'), `advance` from the
+    example's smooth start with the free stream as the inflow lift (nspin
+    steps), `FixedPointSystem` (tau = 0.5) and `newton_fixed_point_iteration`
+    (tol 2e-4, GMRES kdim 30), then `ExponentialPropagator` (tau = 1.0) about
+    the Newton base flow and `linear_stability_analysis_fixed_point` (nev 4,
+    tol 1e-5). Asserts Newton's convergence, an unstable leading mode and a
+    shedding frequency 0.6 < omega < 0.9; prints |mu_1| beside the oracle
+    band (f32 on this mesh is not expected to reach it). Returns the kernel
+    runs of each part, from the device counter set to zero before it."""
+    from neklab_tpu_torch.analysis import (linear_stability_analysis_fixed_point,
+                                           newton_fixed_point_iteration)
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig, advance, initial_state
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.vectors import flow_vector, flow_vector_space
+
+    t0 = time.time()
+    mesh = annulus_mesh(8, 20, r_in=0.5, r_out=20.0, order=6, grading=1.5, outer_bc="vO",
+                        shift=0.25, dtype=torch.float32, device=dev)
+    dt = 5e-3
+    fc = FlowConfig(viscosity=1 / 50, dt=dt, vtol=3e-6, ptol=3e-6)
+    cfg = LinConfig(flow=fc)
+    ub, r = cylinder_lift(mesh)
+    ramp = 1 - torch.exp(-3.0 * (r - 0.5))
+    st = initial_state(mesh, fc, u=mesh.vmask * torch.stack([ramp, 0 * ramp]) + (1 - mesh.vmask) * ub)
+    space = flow_vector_space(mesh, 0)
+    runs, seconds = {}, {}
+
+    hk.reset_launches(dev)
+    t1 = time.time()
+    spin_stats = {}
+    st = advance(mesh, fc, st, nspin, ub=ub, pc_e=build_e_preconditioner(mesh), stats=spin_stats)
+    runs["spin-up"] = hk.launches(dev)  # synchronizes
+    seconds["spin-up"] = time.time() - t1
+    assert bool(torch.isfinite(st.u).all())
+
+    hk.reset_launches(dev)
+    t1 = time.time()
+    system = FixedPointSystem(mesh, cfg, tau=0.5, ub=ub, dt=dt)
+    nres = newton_fixed_point_iteration(system, flow_vector(mesh, 0, u=st.u), space, tol=2e-4,
+                                        maxiter=15, gmres_kdim=30)
+    runs["newton"] = hk.launches(dev)
+    seconds["newton"] = time.time() - t1
+
+    hk.reset_launches(dev)
+    t1 = time.time()
+    expA = ExponentialPropagator(mesh, cfg, nres.x["u"], tau=1.0, dt=dt)
+    eres = linear_stability_analysis_fixed_point(expA, space, kdim=kdim, nev=4, tol=1e-5,
+                                                 maxiter=maxiter)
+    runs["eigensolve"] = hk.launches(dev)
+    seconds["eigensolve"] = time.time() - t1
+
+    mu1 = complex(eres.multipliers[0])
+    lam1 = complex(eres.eigvals[0])
+    omega = abs(lam1.imag)
+    phase("cylinder", t0, nel=mesh.nel, order=mesh.basis.n - 1, dt=dt, nspin=nspin,
+          spinup_s=seconds["spin-up"], spinup_ms_per_step=1e3 * seconds["spin-up"] / nspin,
+          spinup_cg_iters_per_step={k: statistics.mean(v) for k, v in spin_stats.items()},
+          newton_converged=nres.converged, newton_iterations=nres.iterations,
+          newton_history=nres.history, gmres_matvecs=nres.matvecs, newton_s=seconds["newton"],
+          newton_nsteps=next(iter(system.derived.values())).nsteps,
+          newton_solver_sets=len(system.derived), eig_nsteps=expA.nsteps,
+          eig_n_matvec=eres.n_matvec, eig_s=seconds["eigensolve"],
+          eigvals=[[v.real, v.imag] for v in eres.eigvals], residuals=eres.residuals.tolist(),
+          mu1=[mu1.real, mu1.imag], mu1_abs=abs(mu1), sigma=lam1.real, omega=omega,
+          oracle_mu1_abs=ORACLE_MU1, oracle_band=ORACLE_BAND,
+          in_oracle_band=abs(abs(mu1) - ORACLE_MU1) <= ORACLE_BAND, kernel_runs=runs)
+    print("cylinder " + json.dumps({"launches": runs}), flush=True)
+    assert nres.converged, nres.history
+    assert len(system.derived) == 1  # one solver set: the fixed dt
+    assert abs(mu1) > 1.0, mu1
+    assert 0.6 < omega < 0.9, lam1
+    return runs
+
+
 def main() -> None:
     # one card: the first visible one (before CUDA starts, so the count below
     # is the number of cards this run uses)
@@ -537,6 +725,9 @@ def main() -> None:
     assert torch.cuda.device_count() == 1
     if sys.argv[1:] == ["--oracle"]:
         oracle_phase(dev)
+        return
+    if sys.argv[1:] == ["--cylinder"]:
+        cylinder_phase(dev)
         return
 
     # ---- 0: device ----
@@ -556,32 +747,44 @@ def main() -> None:
 
     kernel = kernel_phase(dev)
     parity_phase(dev)
+    nonlinear_phase(dev)
     box2d_phase(dev)
 
-    oracle = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--oracle"],
-                              stdout=subprocess.PIPE, text=True)
+    side = {flag: subprocess.Popen([sys.executable, os.path.abspath(__file__), flag],
+                                   stdout=subprocess.PIPE, text=True)
+            for flag in ("--oracle", "--cylinder")}
+    outs = {}
     try:
         launches, mu1 = main_path_phase(dev)
         growth_launches, adjoint_launches = growth_phase(dev, mu1)
-        out, _ = oracle.communicate(timeout=1200)
+        for flag, proc in side.items():
+            # the whole run stays inside 1200 s
+            outs[flag], _ = proc.communicate(timeout=max(1.0, t_start + 1150 - time.time()))
     finally:
-        if oracle.poll() is None:
-            oracle.kill()
-            oracle.wait()
-    print(out, end="", flush=True)
-    if oracle.returncode != 0:
-        raise SystemExit(f"chip_smoke: phase oracle failed (exit {oracle.returncode})")
+        for proc in side.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for flag, proc in side.items():
+        print(outs[flag], end="", flush=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_smoke: phase {flag[2:]} failed (exit {proc.returncode})")
+    (line,) = [ln for ln in outs["--cylinder"].splitlines() if ln.startswith("cylinder ")]
+    cylinder = json.loads(line[len("cylinder "):])["launches"]
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(nvidia_smi(), flush=True)
+    by_path = {"direct eigensolve (phase 6)": launches,
+               "transient growth (phase 7)": growth_launches,
+               "cylinder spin-up (phase 8)": cylinder["spin-up"],
+               "cylinder Newton + eigensolve (phase 8)": cylinder["newton"] + cylinder["eigensolve"]}
     print(json.dumps({"kernels": [{
         "name": "helmholtz2d",
         "route": "cuda",
         "source": "neklab_tpu_torch/csrc/helmholtz2d.cu",
         "replaces": "neklab_tpu/ops/pallas_kernels.py:54",
-        "launches": launches + growth_launches,
-        "launches_by_path": {"direct eigensolve (phase 6)": launches,
-                             "transient growth (phase 7)": growth_launches},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "adjoint_launches": adjoint_launches,
         **kernel,
     }]}), flush=True)

@@ -1,7 +1,9 @@
 """neklab_tpu_torch: the PyTorch/CUDA port of neklab_tpu.
 
-The direct modal-stability eigensolve (mesh -> SEM operators -> BDF3/EXT3
-linearized propagator -> Krylov-Schur eigs) on torch tensors, with the 2-D
+The modal-stability eigensolves, direct and adjoint (mesh -> SEM operators
+-> BDF3/EXT3 linearized propagator -> Krylov-Schur eigs), transient growth,
+and the base flows they start from (the nonlinear BDF3/EXT3 stepper and
+Newton-Krylov over a fixed-point system) on torch tensors, with the 2-D
 local Helmholtz apply as a hand-written CUDA kernel for Hopper
 (`ops/helmholtz_kernel.py`, `csrc/helmholtz2d.cu`). The JAX package
 `neklab_tpu` is the reference the port is tested against; this package
@@ -9,7 +11,8 @@ imports torch, numpy and scipy, never jax.
 
 Field layout is the reference's element-last `[..., s, r, nel]` at every
 public function. The device is chosen once, by `box_mesh(..., device=)` (or
-`build_mesh`, `mesh_from_arrays`), and every later tensor follows the mesh's
+`annulus_mesh`, `build_mesh`, `mesh_from_arrays`), and every later tensor
+follows the mesh's
 device. It defaults to the current CUDA card; without a card the mesh
 builders raise unless the caller passes `device="cpu"`.
 """

@@ -1,11 +1,12 @@
 """Analysis drivers: linear stability (direct and adjoint) and transient
-growth of a fixed point.
+growth of a fixed point, and the Newton-Krylov computation of the fixed
+point itself.
 
-Counterparts of `neklab_tpu.analysis.linear_stability_analysis_fixed_point`
-and `transient_growth_analysis_fixed_point`, writing the same
-`<dir|adj>_eigenspectrum.npy` and `singular_spectrum.dat` (the Newton and
-OTD drivers, the timers and the eigenvector outposting are later ROADMAP
-items).
+Counterparts of `neklab_tpu.analysis.linear_stability_analysis_fixed_point`,
+`transient_growth_analysis_fixed_point` and `newton_fixed_point_iteration`,
+writing the same `<dir|adj>_eigenspectrum.npy`, `singular_spectrum.dat` and
+`residual.dat` (the OTD driver, the timers and the eigenvector outposting
+are later ROADMAP items).
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import logging
 import os
 import time
 
+from typing import Any
+
 import numpy as np
 
 from .krylov.eigs import eigs
+from .krylov.newton import constant_tol, dynamic_tol, newton
 from .krylov.space import VectorSpace
 from .krylov.svd import svds
 from .linops.exponential_propagator import ExponentialPropagator
@@ -80,6 +84,49 @@ def linear_stability_analysis_fixed_point(
         n_matvec=res.n_matvec,
         elapsed=elapsed,
     )
+
+
+@dataclasses.dataclass
+class NewtonFPResult:
+    x: Any
+    residual_norm: float
+    converged: bool
+    iterations: int
+    history: list  # ||F|| at the start and after every iteration
+    matvecs: list  # Jacobian matvecs of every iteration's GMRES solve
+    elapsed: float
+
+
+def newton_fixed_point_iteration(
+    system,
+    x0,
+    space: VectorSpace,
+    tol: float = 1e-6,
+    maxiter: int = 40,
+    scheduler: str = "dynamic",
+    gmres_kdim: int = 64,
+    outdir: str | None = None,
+    callback=None,
+) -> NewtonFPResult:
+    """Newton-Krylov base-flow computation: `krylov.newton` on `system`
+    (e.g. `systems.fixed_point.FixedPointSystem`) with the scheduler
+    nek_dynamic_tol ("dynamic") or nek_constant_tol. With `outdir`, writes
+    residual.dat: one line per entry of the history, `i |F|`."""
+    t0 = time.time()
+    sched = dynamic_tol(tol) if scheduler == "dynamic" else constant_tol(tol)
+    res = newton(system, x0, space, tol=tol, maxiter=maxiter, scheduler=sched,
+                 gmres_kdim=gmres_kdim, callback=callback)
+    elapsed = time.time() - t0
+    logger.info("newton: converged=%s |F|=%.3e in %d its (%.1fs)", res.converged,
+                res.residual_norm, res.iterations, elapsed)
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        with open(os.path.join(outdir, "residual.dat"), "w") as f:
+            for i, r in enumerate(res.history):
+                f.write(f"{i} {r:.12e}\n")
+    return NewtonFPResult(x=res.x, residual_norm=res.residual_norm, converged=res.converged,
+                          iterations=res.iterations, history=res.history, matvecs=res.matvecs,
+                          elapsed=elapsed)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
-"""Abstract linear operator interface (LightKrylov's `abstract_linop_rdp`
-as a plain Python class over dict-of-tensor vectors)."""
+"""Abstract linear operator and nonlinear system interfaces (LightKrylov's
+`abstract_linop_rdp` and `abstract_system_rdp`, as plain Python classes
+over dict-of-tensor vectors)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ class LinearOperator:
 
     def rmatvec(self, x: Vector) -> Vector:
         raise NotImplementedError
+
+    def apply(self, x: Vector, adjoint: bool = False) -> Vector:
+        return self.rmatvec(x) if adjoint else self.matvec(x)
 
 
 class FunctionOperator(LinearOperator):
@@ -46,3 +50,13 @@ class AdjointOperator(LinearOperator):
 
     def rmatvec(self, x):
         return self.op.matvec(x)
+
+
+class NonlinearSystem:
+    """F(x) and its Jacobian about a point, for Newton-Krylov."""
+
+    def response(self, x: Vector) -> Vector:
+        raise NotImplementedError
+
+    def jacobian(self, x: Vector) -> LinearOperator:
+        raise NotImplementedError

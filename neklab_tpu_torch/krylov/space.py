@@ -18,8 +18,24 @@ import torch
 Vector = Any
 
 
+def tree_axpby(a, x: dict, b, y: dict) -> dict:
+    return {k: a * v + b * y[k] for k, v in x.items()}
+
+
 def tree_scale(a, x: dict) -> dict:
     return {k: a * v for k, v in x.items()}
+
+
+def tree_add(x: dict, y: dict) -> dict:
+    return {k: v + y[k] for k, v in x.items()}
+
+
+def tree_sub(x: dict, y: dict) -> dict:
+    return {k: v - y[k] for k, v in x.items()}
+
+
+def tree_zeros_like(x: dict) -> dict:
+    return {k: torch.zeros_like(v) for k, v in x.items()}
 
 
 @dataclasses.dataclass

@@ -16,9 +16,9 @@ import torch
 
 from ..krylov.linop import LinearOperator
 from ..mesh.core import SemMesh
-from ..models.linearized import (AdjointPropagator, LinConfig, _bdf3_diags,
-                                 make_adjoint_propagator, pressure_solvers, propagate,
-                                 velocity_solvers)
+from ..models.linearized import (AdjointPropagator, LinConfig, make_adjoint_propagator,
+                                 pressure_solvers, propagate, velocity_solvers)
+from ..models.navier_stokes import bdf3_diags
 from ..models.precond import build_e_preconditioner
 from ..utils.timestep import cfl_dt, clamp_cfl, horizon_steps
 
@@ -65,7 +65,7 @@ class ExponentialPropagator(LinearOperator):
         self.cfg = dataclasses.replace(cfg, flow=dataclasses.replace(cfg.flow, dt=self.dt))
         self.pc_e = build_e_preconditioner(mesh)
         fc = self.cfg.flow
-        self.vdiag, self.tdiags = _bdf3_diags(mesh, fc, None, None)
+        self.vdiag, self.tdiags = bdf3_diags(mesh, fc)
         self.psolves = pressure_solvers(mesh, self.cfg, self.nsteps, self.pc_e)
         self.vsolves = velocity_solvers(mesh, self.cfg, self.nsteps, self.vdiag, self.tdiags)
         f = float(adjoint_tol_factor)

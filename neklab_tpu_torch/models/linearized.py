@@ -33,8 +33,8 @@ import torch
 from ..mesh.core import SemMesh
 from ..ops import sem
 from . import stokes
-from .navier_stokes import (_BDF, _EXT, FlowConfig, helmholtz_diag, make_helmholtz_solver,
-                            make_pressure_solver)
+from . import navier_stokes as ns
+from .navier_stokes import _BDF, _EXT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +43,7 @@ class LinConfig:
     lin_source_fn(mesh, u, theta) must be LINEAR in (u, theta) — e.g.
     Boussinesq buoyancy g*beta*theta'."""
 
-    flow: FlowConfig
+    flow: ns.FlowConfig
     lin_forcing_fn: Callable | None = None
     lin_source_fn: Callable | None = None
 
@@ -136,7 +136,9 @@ def step_lin(
     n_u, n_t = _lin_terms(mesh, cfg, state.u, state.theta, base_u, base_theta,
                           conv_cache=conv_cache)
 
-    pstar = state.p  # incremental pressure
+    # pressure treatment mirrors the nonlinear step (cfg.flow.pextrap)
+    extrapolate = fc.pextrap >= 2 and order >= 2
+    pstar = 2.0 * state.p - state.plag[0] if extrapolate else state.p
     nstar = alphas[0] * n_u + alphas[1] * state.nlag[0] + alphas[2] * state.nlag[1]
     bsum = betas[0] * state.u + betas[1] * state.ulag[0] + betas[2] * state.ulag[1]
     # the perturbation meets each mesh field in a product of its own: a
@@ -146,8 +148,9 @@ def step_lin(
     ustar = vsolve(rhs, torch.zeros_like(state.u), stats=stats)
 
     dt_over_g0 = dt / (g0 * fc.rho)
-    # warm start: the previous step's increment
-    dp = psolve(-stokes.div_weak(mesh, ustar), x0=state.p - state.plag[0], stats=stats)
+    # warm start (incremental pressure only): the previous step's increment
+    x0 = None if fc.pextrap >= 2 else state.p - state.plag[0]
+    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats)
     du = stokes.pressure_correct_velocity(mesh, dp, dt_over_g0)
     u_new = ustar + du
     p_new = pstar + dp
@@ -179,46 +182,16 @@ def step_lin(
 def pressure_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, pc_e=None) -> dict:
     """{order: pressure solver} for the BDF orders `propagate` steps with
     (the self-starting ramp, then the scheme's order)."""
-    fc = cfg.flow
-    tmax = min(fc.torder, 3)
-    return {
-        order: make_pressure_solver(mesh, fc, fc.dt / (_BDF[order][0] * fc.rho), pc=pc_e)
-        for order in range(1, min(nsteps, tmax) + 1)
-    }
-
-
-def _helmholtz_solvers(mesh: SemMesh, fc: FlowConfig, order: int, vdiag, tdiags):
-    """(velocity solver, [scalar solvers]) of one BDF order."""
-    g0 = _BDF[order][0]
-    vsolve = make_helmholtz_solver(mesh, fc.viscosity, fc.rho * g0 / fc.dt, mesh.vmask, vdiag,
-                                   fc.vtol, fc.vmaxit)
-    tsolves = [make_helmholtz_solver(mesh, fc.conductivity[i], g0 / fc.dt, mesh.tmask, tdiags[i],
-                                     fc.ttol, fc.vmaxit)
-               for i in range(fc.nscal)]
-    return vsolve, tsolves
+    return ns.pressure_solvers(mesh, cfg.flow, ns.bdf_orders(cfg.flow, nsteps), pc_e)
 
 
 def velocity_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, vdiag, tdiags) -> dict:
     """{order: (velocity solver, [scalar solvers])} for the BDF orders
-    `propagate` steps with. h2 = rho g0 / dt changes with the order in the
-    ramp, so each order has its own solvers; vdiag and tdiags (the BDF3
-    Jacobi diagonals; tdiags may be None without scalars) serve every order,
-    as in the reference."""
-    fc = cfg.flow
-    tmax = min(fc.torder, 3)
-    return {order: _helmholtz_solvers(mesh, fc, order, vdiag, tdiags)
-            for order in range(1, min(nsteps, tmax) + 1)}
-
-
-def _bdf3_diags(mesh: SemMesh, fc: FlowConfig, vdiag, tdiags):
-    """(vdiag, tdiags): the BDF3 Jacobi diagonals, each built when None."""
-    g0 = _BDF[min(fc.torder, 3)][0]
-    if vdiag is None:
-        vdiag = helmholtz_diag(mesh, fc.viscosity, fc.rho * g0 / fc.dt, mesh.vmask)
-    if tdiags is None:
-        tdiags = [helmholtz_diag(mesh, fc.conductivity[i], g0 / fc.dt, mesh.tmask)
-                  for i in range(fc.nscal)] or None
-    return vdiag, tdiags
+    `propagate` steps with; vdiag and tdiags (the BDF3 Jacobi diagonals;
+    tdiags may be None without scalars) serve every order, as in the
+    reference. The nonlinear `advance` at the same dt takes the same
+    solvers (`navier_stokes.velocity_solvers`)."""
+    return ns.velocity_solvers(mesh, cfg.flow, ns.bdf_orders(cfg.flow, nsteps), vdiag, tdiags)
 
 
 def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nsteps: int,
@@ -235,7 +208,7 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     fc = cfg.flow
     state = pert_initial(mesh, cfg, u0, theta0)
     tmax = min(fc.torder, 3)
-    vdiag3, tdiags3 = _bdf3_diags(mesh, fc, vdiag, tdiags)
+    vdiag3, tdiags3 = ns.bdf3_diags(mesh, fc, vdiag, tdiags)
     ccache = sem.lin_convect_cache(mesh, base_u, base_theta if fc.nscal else None)
     if psolves is None:
         psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
@@ -269,40 +242,52 @@ class AdjointPropagator:
         """stats: optional dict; every transposed solve appends its CG's
         iteration count, under the forward solver's key ("helmholtz",
         "pressure"), in the order the backward runs them (last step first)."""
-        mesh = self.mesh
-        # scale normalization (exact by linearity; the reference's
-        # make_adjoint_propagator): the seed bm1 * v is orders of magnitude
-        # smaller than v, and the transposed solves stop at the forward's
-        # ABSOLUTE tolerances, so the seed is rescaled to v's Euclidean size
-        # and the result scaled back
-        nv = torch.sqrt(torch.sum(v_u * v_u) + torch.sum(v_theta * v_theta))
-        iu, it = mesh.bm1 * v_u, mesh.bm1 * v_theta
-        ni = torch.sqrt(torch.sum(iu * iu) + torch.sum(it * it))
-        c = torch.where(ni > 0, nv / torch.clamp_min(ni, torch.finfo(ni.dtype).tiny), 1.0)
         self._log.clear()
-        grads = torch.autograd.grad(self._outputs, self._inputs, grad_outputs=(c * iu, c * it),
-                                    retain_graph=True, allow_unused=True)
+        out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
         if stats is not None:
             for key, counts in self._log.items():
                 stats.setdefault(key, []).extend(counts)
-        wu, wt = (torch.zeros_like(x) if g is None else g for g, x in zip(grads, self._inputs))
-        au = mesh.vmask * mesh.binv * sem.dssum(mesh, wu) / c
-        at = mesh.tmask * mesh.binv * sem.dssum(mesh, wt) / c
-        return au, at
+        return out
+
+
+def b_adjoint(mesh: SemMesh, inputs, outputs, v_u, v_theta):
+    """The B-adjoint of the map inputs (u, theta) -> outputs (u, theta)
+    recorded on autograd's tape, applied to (v_u, v_theta):
+    vmask Bhat^-1 dssum( M^T (B v) ), the tape kept for the next call.
+
+    Scale normalization (exact by linearity; the reference's
+    make_adjoint_propagator): the seed bm1 * v is orders of magnitude
+    smaller than v, and the transposed solves stop at the forward's
+    ABSOLUTE tolerances, so the seed is rescaled to v's Euclidean size and
+    the result scaled back."""
+    nv = torch.sqrt(torch.sum(v_u * v_u) + torch.sum(v_theta * v_theta))
+    iu, it = mesh.bm1 * v_u, mesh.bm1 * v_theta
+    ni = torch.sqrt(torch.sum(iu * iu) + torch.sum(it * it))
+    c = torch.where(ni > 0, nv / torch.clamp_min(ni, torch.finfo(ni.dtype).tiny), 1.0)
+    grads = torch.autograd.grad(outputs, inputs, grad_outputs=(c * iu, c * it),
+                                retain_graph=True, allow_unused=True)
+    wu, wt = (torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs))
+    au = mesh.vmask * mesh.binv * sem.dssum(mesh, wu) / c
+    at = mesh.tmask * mesh.binv * sem.dssum(mesh, wt) / c
+    return au, at
 
 
 def make_adjoint_propagator(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, nsteps: int,
-                            pc_e=None, vdiag=None, tdiags=None) -> AdjointPropagator:
+                            pc_e=None, vdiag=None, tdiags=None, psolves=None,
+                            vsolves=None) -> AdjointPropagator:
     """The exact discrete B-adjoint of `propagate` at cfg's tolerances.
 
-    Builds its own solvers (one per BDF order, each with its CUDA graph on
-    the card) and records `propagate` once, from a zero input that requires
-    grad: every CG then exits at iteration 0, so recording runs no CG
-    iteration, only the step's other ops."""
+    Takes the solvers of `propagate` at these tolerances (one per BDF order,
+    each with its CUDA graph on the card; built here when None) and records
+    `propagate` once, from a zero input that requires grad: every CG then
+    exits at iteration 0, so recording runs no CG iteration, only the
+    step's other ops. Every backward re-solves with the same solvers."""
     fc = cfg.flow
-    vdiag, tdiags = _bdf3_diags(mesh, fc, vdiag, tdiags)
-    psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
-    vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag, tdiags)
+    vdiag, tdiags = ns.bdf3_diags(mesh, fc, vdiag, tdiags)
+    if psolves is None:
+        psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
+    if vsolves is None:
+        vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag, tdiags)
     shape = tuple(mesh.bm1.shape)
     inputs = tuple(torch.zeros((lead,) + shape, dtype=mesh.dtype, device=mesh.device,
                                requires_grad=True) for lead in (mesh.ndim, cfg.nscal))

@@ -1,20 +1,37 @@
-"""BDFk/EXTk fractional-step building blocks shared by the steppers.
+"""Incompressible Navier-Stokes time stepper: BDFk/EXTk fractional step.
 
-The configuration, the BDF/EXT coefficient tables, the implicit velocity
-(and scalar) Helmholtz solve with its Jacobi diagonal, and the pressure E
-solve. Counterparts of `neklab_tpu.models.navier_stokes` (the nonlinear
-stepper itself is not ported yet; the linearized stepper uses these).
+One step:
+
+  1. explicit terms: dealiased convection extrapolated to t^{n+1} (EXTk),
+     body forcing (a user hook), BDFk mass history;
+  2. implicit Helmholtz solve for the velocity components (and each
+     scalar): (g0/dt) B u + nu A u = rhs with u = ub on Dirichlet DOFs;
+  3. pressure correction: solve E dp = -(q, div u*), update u and p
+     (P(N)/P(N-2), no pressure BCs; see models/stokes.py).
+
+Counterpart of `neklab_tpu.models.navier_stokes`. The reference jits
+`advance` into one program per (mesh, nsteps) and lets jit's cache keep its
+solves; here every CG is a `PCG` built once per (dt, BDF order) and, on the
+card, captured as a CUDA graph when it is built. So `advance` takes its
+solvers prebuilt (`pressure_solvers`, `velocity_solvers`), as the
+linearized `propagate` does, and builds them only when the caller passes
+none. The state's `time` is a host float. Unlike the reference, the
+velocity and scalar solves start from the extrapolated fields (see
+`step`). Cross-solve recycling (the reference's `recycle=`) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable
 
 import torch
 
 from ..mesh.core import SemMesh
 from ..ops import sem
 from ..ops.tensor import linear
+from ..utils.timestep import cfl_dt, clamp_cfl
 from . import stokes
 from .solvers import PCG, linear_solve, local_diagonal
 
@@ -23,8 +40,13 @@ from .solvers import PCG, linear_solve, local_diagonal
 class FlowConfig:
     """Solver configuration (the `.par` GENERAL/VELOCITY/PRESSURE/TEMPERATURE
     tiers): viscosity, time step and order, scalars, density, and the
-    absolute CG tolerances and iteration caps of the implicit solves. The
-    pressure is incremental (p* = p^n), the reference's default."""
+    absolute CG tolerances and iteration caps of the implicit solves.
+
+    pextrap: the pressure treatment, 1 = incremental (p* = p^n, the
+    previous increment warm-starts the E solve), 2 = extrapolated (p* = 2
+    p^n - p^{n-1}, one more power of dt in the splitting error).
+    forcing_fn(mesh, t, u, theta) -> [ndim, pts..., nel] strong body force;
+    source_fn(mesh, t, u, theta) -> [nscal, pts..., nel] scalar sources."""
 
     viscosity: float
     dt: float
@@ -37,10 +59,40 @@ class FlowConfig:
     ttol: float = 1e-10
     vmaxit: int = 500
     pmaxit: int = 800
+    pextrap: int = 1
+    forcing_fn: Callable | None = None
+    source_fn: Callable | None = None
 
     def __post_init__(self):
         if self.nscal and len(self.conductivity) != self.nscal:
             raise ValueError("conductivity must have nscal entries")
+
+
+@dataclasses.dataclass
+class FlowState:
+    u: torch.Tensor  # [ndim, pts..., nel]
+    p: torch.Tensor  # [pts2..., nel]
+    theta: torch.Tensor  # [nscal, pts..., nel]
+    ulag: torch.Tensor  # [torder-1, ndim, ...] velocity history
+    nlag: torch.Tensor  # [torder-1, ndim, ...] advection-term history
+    tlag: torch.Tensor  # [torder-1, nscal, ...]
+    ntlag: torch.Tensor  # [torder-1, nscal, ...]
+    plag: torch.Tensor  # [1, pts2..., nel] previous pressure
+    time: float
+
+
+def initial_state(mesh: SemMesh, cfg: FlowConfig, u=None, theta=None, p=None) -> FlowState:
+    shape = tuple(mesh.bm1.shape)
+    nd, ns, no = mesh.ndim, cfg.nscal, cfg.torder - 1
+    z = lambda s: torch.zeros(s, dtype=mesh.dtype, device=mesh.device)
+    if u is None:
+        u = z((nd,) + shape)
+    if theta is None:
+        theta = z((ns,) + shape)
+    if p is None:
+        p = z(tuple(mesh.bm2.shape))
+    return FlowState(u=u, p=p, theta=theta, ulag=z((no, nd) + shape), nlag=z((no, nd) + shape),
+                     tlag=z((no, ns) + shape), ntlag=z((no, ns) + shape), plag=p[None], time=0.0)
 
 
 # BDFk / EXTk coefficients (gamma0, beta_j for u^{n-j}, alpha_j for N^{n-j})
@@ -73,7 +125,7 @@ def helmholtz_diag(mesh: SemMesh, h1, h2, mask) -> torch.Tensor:
 
 
 def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
-    """Returns u = solve(rhs_weak, bc_val, stats=None), which solves
+    """Returns u = solve(rhs_weak, bc_val, stats=None, x0=None), which solves
     (h1 A + h2 B) u = rhs with u = bc_val on Dirichlet DOFs at fixed h1, h2.
 
     rhs_weak: unassembled local weak residual shaped like `mask` (a leading
@@ -88,7 +140,13 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
     (`PCG`); the CG runs through `linear_solve`, so a reverse pass re-solves
     with it. stats: optional dict; each solve appends its CG's iteration
     count to stats["helmholtz"], and so does each backward of a solve
-    recorded with that dict."""
+    recorded with that dict.
+
+    x0: an optional guess of u (a C0 field, e.g. the extrapolated one),
+    entered as the shift y = y0 + delta with op(delta) = b - op(y0), so the
+    map stays linear and equals the cold solve to the CG's tolerance. The
+    CG then works on the correction alone: fewer iterations, and its
+    float32 rounding scales with the correction instead of with u."""
     sqw = torch.sqrt(mesh.vmult)
     msq = mask * sqw
 
@@ -110,13 +168,18 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
                        device=mesh.device)
     cg = PCG(op, like, precond=lambda r: r / diag)
 
-    def solve(rhs_weak, bc_val, stats=None):
+    def solve(rhs_weak, bc_val, stats=None, x0=None):
         ub = (1.0 - mask) * bc_val
         b = msq * sem.dssum(mesh, rhs_weak - sem.helmholtz_local(mesh, ub, h1, h2))
         if b.shape != like.shape:
             raise ValueError(f"helmholtz solve: right-hand side {tuple(b.shape)}, the solver "
                              f"was built for {tuple(like.shape)}")
-        y = linear_solve(cg, b, tol, maxiter, project=consistent, log=_logger(stats, "helmholtz"))
+        log = _logger(stats, "helmholtz")
+        if x0 is None:
+            y = linear_solve(cg, b, tol, maxiter, project=consistent, log=log)
+        else:
+            y0 = msq * x0
+            y = y0 + linear_solve(cg, b - op(y0), tol, maxiter, project=consistent, log=log)
         return ub + mask * (y / sqw)
 
     return solve
@@ -187,3 +250,249 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
         return dp
 
     return solve
+
+
+# ---------------------------------------------------------------------------
+# the solvers of a run: one set per (dt, BDF order), built once
+# ---------------------------------------------------------------------------
+
+
+def bdf_orders(cfg: FlowConfig, nsteps: int, ramp: bool = True) -> list[int]:
+    """The BDF orders a run of nsteps steps uses: the self-starting ramp
+    1, 2 (with `ramp`), then the scheme's order."""
+    tmax = min(cfg.torder, 3)
+    if nsteps <= 0:
+        return []
+    if not ramp:
+        return [tmax]
+    return list(range(1, min(nsteps, tmax) + 1))
+
+
+def bdf3_diags(mesh: SemMesh, cfg: FlowConfig, vdiag=None, tdiags=None):
+    """(vdiag, tdiags): the Jacobi diagonals of the velocity and scalar
+    solves at the scheme's order and cfg.dt, each built when None (tdiags
+    stays None without scalars). They serve the ramp's orders too, as in
+    the reference."""
+    g0 = _BDF[min(cfg.torder, 3)][0]
+    if vdiag is None:
+        vdiag = helmholtz_diag(mesh, cfg.viscosity, cfg.rho * g0 / cfg.dt, mesh.vmask)
+    if tdiags is None:
+        tdiags = [helmholtz_diag(mesh, cfg.conductivity[i], g0 / cfg.dt, mesh.tmask)
+                  for i in range(cfg.nscal)] or None
+    return vdiag, tdiags
+
+
+def pressure_solvers(mesh: SemMesh, cfg: FlowConfig, orders, pc_e=None) -> dict:
+    """{order: pressure solver} at cfg.dt for the given BDF orders."""
+    return {order: make_pressure_solver(mesh, cfg, cfg.dt / (_BDF[order][0] * cfg.rho), pc=pc_e)
+            for order in orders}
+
+
+def velocity_solvers(mesh: SemMesh, cfg: FlowConfig, orders, vdiag, tdiags) -> dict:
+    """{order: (velocity solver, [scalar solvers])} at cfg.dt for the given
+    BDF orders. h2 = rho g0 / dt changes with the order, so each order has
+    its own solvers; vdiag and tdiags (`bdf3_diags`) serve every order. A
+    solver takes its Dirichlet values per solve, so one set serves the
+    nonlinear step (the lift ub) and the linearized one (zero)."""
+    out = {}
+    for order in orders:
+        g0 = _BDF[order][0]
+        vsolve = make_helmholtz_solver(mesh, cfg.viscosity, cfg.rho * g0 / cfg.dt, mesh.vmask,
+                                       vdiag, cfg.vtol, cfg.vmaxit)
+        tsolves = [make_helmholtz_solver(mesh, cfg.conductivity[i], g0 / cfg.dt, mesh.tmask,
+                                         tdiags[i], cfg.ttol, cfg.vmaxit)
+                   for i in range(cfg.nscal)]
+        out[order] = (vsolve, tsolves)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+
+def _explicit_terms(mesh: SemMesh, cfg: FlowConfig, u, theta, t, extra_force=None):
+    """Weak-form explicit terms: N_u = -(v, u . grad u) + (v, f);
+    N_theta_i = -(q, u . grad theta_i) + (q, s_i). The velocity and the
+    scalars are convected in one batch."""
+    nd = mesh.ndim
+    if cfg.nscal:
+        conv = sem.convect_volume_weak(mesh, torch.cat([u, theta]), u)
+        n_u, n_t = -conv[:nd], -conv[nd:]
+        if cfg.source_fn is not None:
+            n_t = n_t + mesh.bm1 * cfg.source_fn(mesh, t, u, theta)
+    else:
+        n_u, n_t = -sem.convect_volume_weak(mesh, u, u), torch.zeros_like(theta)
+    if cfg.forcing_fn is not None:
+        n_u = n_u + mesh.bm1 * cfg.forcing_fn(mesh, t, u, theta)
+    if extra_force is not None:
+        n_u = n_u + mesh.bm1 * extra_force
+    return n_u, n_t
+
+
+def step(
+    mesh: SemMesh,
+    cfg: FlowConfig,
+    state: FlowState,
+    order: int,
+    psolve,
+    vsolve,
+    tsolves,
+    ub=None,
+    tb=None,
+    extra_force=None,
+    stats=None,
+) -> FlowState:
+    """One BDF(order)/EXT(order) step of the nonlinear solver at cfg.dt.
+
+    psolve, vsolve, tsolves: this order's pressure, velocity and scalar
+    solvers at cfg.dt (`pressure_solvers`, `velocity_solvers`). ub, tb: the
+    Dirichlet values of the velocity and scalars (zero when None), applied
+    as a lift through each solve. stats: optional dict; the velocity and
+    pressure CG iteration counts are appended to stats["helmholtz"] and
+    stats["pressure"]."""
+    dt = cfg.dt
+    g0, betas = _BDF[order]
+    alphas = _EXT[order]
+    if ub is None:
+        ub = torch.zeros_like(state.u)
+
+    n_u, n_t = _explicit_terms(mesh, cfg, state.u, state.theta, state.time, extra_force)
+
+    # ---- velocity ----
+    # pressure treatment (cfg.pextrap): incremental p* = p^n, or extrapolated
+    # p* = 2 p^n - p^{n-1}
+    extrapolate = cfg.pextrap >= 2 and order >= 2
+    pstar = 2.0 * state.p - state.plag[0] if extrapolate else state.p
+    nstar = alphas[0] * n_u + alphas[1] * state.nlag[0] + alphas[2] * state.nlag[1]
+    bsum = betas[0] * state.u + betas[1] * state.ulag[0] + betas[2] * state.ulag[1]
+    rhs = mesh.bm1 * bsum * (cfg.rho / dt) + nstar + stokes.grad_weak_t(mesh, pstar)
+    # warm start: the extrapolated velocity. In float32 a cold solve's
+    # rounding, relative to u, sets the floor of a Newton residual over
+    # ~100 steps; warm, the CG works on the O(dt^k) correction.
+    uext = alphas[0] * state.u + alphas[1] * state.ulag[0] + alphas[2] * state.ulag[1]
+    ustar = vsolve(rhs, ub, stats=stats, x0=uext)
+
+    # ---- pressure correction ----
+    # E carries dt/g0, so D(u* + du) = 0 reads E dp = -div u*. Warm start
+    # (incremental pressure only): the previous increment; under
+    # extrapolation dp is a second difference, for which zero is the
+    # better guess.
+    dt_over_g0 = dt / (g0 * cfg.rho)
+    x0 = None if cfg.pextrap >= 2 else state.p - state.plag[0]
+    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats)
+    u_new = ustar + stokes.pressure_correct_velocity(mesh, dp, dt_over_g0)
+    p_new = pstar + dp
+
+    # ---- scalars ----
+    if cfg.nscal:
+        if tb is None:
+            tb = torch.zeros_like(state.theta)
+        ntstar = alphas[0] * n_t + alphas[1] * state.ntlag[0] + alphas[2] * state.ntlag[1]
+        tbsum = betas[0] * state.theta + betas[1] * state.tlag[0] + betas[2] * state.tlag[1]
+        text = alphas[0] * state.theta + alphas[1] * state.tlag[0] + alphas[2] * state.tlag[1]
+        theta_new = torch.stack([tsolves[i](mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i], tb[i],
+                                            x0=text[i])
+                                 for i in range(cfg.nscal)])
+    else:
+        theta_new = state.theta
+
+    shift = lambda lag, cur: torch.cat([cur[None], lag[:-1]], dim=0)
+    return FlowState(
+        u=u_new,
+        p=p_new,
+        theta=theta_new,
+        ulag=shift(state.ulag, state.u),
+        nlag=shift(state.nlag, n_u),
+        tlag=shift(state.tlag, state.theta),
+        ntlag=shift(state.ntlag, n_t),
+        plag=state.p[None],
+        time=state.time + dt,
+    )
+
+
+# ---------------------------------------------------------------------------
+# multi-step advance
+# ---------------------------------------------------------------------------
+
+
+def advance(mesh: SemMesh, cfg: FlowConfig, state: FlowState, nsteps: int, ub=None, tb=None,
+            ramp: bool = True, pc_e=None, vdiag=None, tdiags=None, dt=None, psolves=None,
+            vsolves=None, stats=None) -> FlowState:
+    """Integrate nsteps with a BDF1/2/3 startup ramp (self-starting: the map
+    needs no externally supplied history); ramp=False continues at the
+    scheme's order from the state's history.
+
+    dt: replaces cfg.dt for this run. vdiag/tdiags: the Jacobi diagonals
+    (`bdf3_diags`); psolves and vsolves: the solvers at this dt
+    (`pressure_solvers`, `velocity_solvers`, for at least
+    `bdf_orders(cfg, nsteps, ramp)`). A caller that advances repeatedly at
+    one dt builds them once; they are built here when None. stats: as in
+    `step`, one entry per step and solve."""
+    if dt is not None:
+        cfg = dataclasses.replace(cfg, dt=float(dt))
+    orders = bdf_orders(cfg, nsteps, ramp)
+    if psolves is None:
+        psolves = pressure_solvers(mesh, cfg, orders, pc_e)
+    if vsolves is None:
+        vdiag, tdiags = bdf3_diags(mesh, cfg, vdiag, tdiags)
+        vsolves = velocity_solvers(mesh, cfg, orders, vdiag, tdiags)
+    tmax = min(cfg.torder, 3)
+    n_ramp = min(cfg.torder - 1, nsteps) if ramp else 0
+    for k in range(nsteps):
+        order = k + 1 if k < n_ramp else tmax
+        vsolve, tsolves = vsolves[order]
+        state = step(mesh, cfg, state, order, psolves[order], vsolve, tsolves, ub=ub, tb=tb,
+                     stats=stats)
+    return state
+
+
+def advance_adaptive(
+    mesh: SemMesh,
+    cfg: FlowConfig,
+    state: FlowState,
+    endtime: float,
+    cfl: float = 0.4,
+    ub=None,
+    tb=None,
+    pc_e=None,
+    chunk: int = 25,
+    max_growth: float = 1.2,
+    stats=None,
+) -> FlowState:
+    """Variable-dt nonlinear advance to `endtime` (DNS spin-up).
+
+    The reference's variable-dt path: dt is re-derived per chunk from the
+    target CFL against the current velocity, with at most `max_growth` per
+    re-derivation, and the final chunk lands on endtime exactly. The BDF
+    history is carried across dt changes with fixed coefficients (spin-up
+    only; analysis runs use a fixed dt). Solvers and Jacobi diagonals are
+    built anew only when dt changes; pc_e serves every dt. stats: as in
+    `advance`, plus stats["solver_builds"], one entry (the dt) per set of
+    solvers built."""
+    cfl = clamp_cfl(cfl)
+    t = state.time
+    dt_old = None
+    built_dt, diags, psolves, vsolves = None, None, {}, {}
+    while t < endtime - 1e-12:
+        dt_new = cfl_dt(mesh, state.u, cfl=cfl)
+        if dt_old is not None:
+            dt_new = min(dt_new, max_growth * dt_old)
+        nleft = max(1, math.ceil((endtime - t) / dt_new - 1e-12))
+        k = min(chunk, nleft)
+        if nleft <= chunk:
+            dt_new = (endtime - t) / nleft  # hit endtime exactly
+        ramp = dt_old is None
+        fc = dataclasses.replace(cfg, dt=dt_new)
+        if dt_new != built_dt:
+            built_dt, diags, psolves, vsolves = dt_new, bdf3_diags(mesh, fc), {}, {}
+            if stats is not None:
+                stats.setdefault("solver_builds", []).append(dt_new)
+        missing = [o for o in bdf_orders(fc, k, ramp) if o not in psolves]
+        psolves.update(pressure_solvers(mesh, fc, missing, pc_e))
+        vsolves.update(velocity_solvers(mesh, fc, missing, *diags))
+        state = advance(mesh, fc, state, k, ub=ub, tb=tb, ramp=ramp, psolves=psolves,
+                        vsolves=vsolves, stats=stats)
+        dt_old = dt_new
+        t = state.time
+    return state

@@ -16,8 +16,9 @@ The reference wraps its CG in `lax.custom_linear_solve(symmetric=True)` so
 that the solve can be transposed (exact discrete adjoints). `linear_solve`
 is the port's counterpart: the solve is a symmetric linear map of its
 right-hand side, and under autograd its backward runs the same built-once
-`PCG`, at the same tolerance and with the same graph, on the cotangent. The
-iterations are re-solved, never differentiated.
+`PCG`, at the same tolerance and with the same graph, on the cotangent; in
+forward mode its jvp does the same on the tangent (`jax.jvp` through
+`custom_linear_solve`). The iterations are re-solved, never differentiated.
 """
 
 from __future__ import annotations
@@ -134,8 +135,10 @@ def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
     symmetric projection that commutes with cg.op and whose range holds
     every b (the pressure's range of E, the velocity's consistent
     subspace); the map is then solve o project, and the backward projects
-    the cotangent before it solves. log(k) receives each solve's iteration
-    count, the backward's too."""
+    the cotangent before it solves. In forward mode the tangent is solved
+    the same way (its right-hand side lies in the range as b does). log(k)
+    receives each solve's iteration count, the backward's and the tangent's
+    too."""
 
     def solve(rhs):
         x, k, _ = cg.solve(rhs, tol=tol, maxiter=maxiter)

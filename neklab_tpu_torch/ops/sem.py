@@ -28,6 +28,8 @@ __all__ = [
     "stiffness_local",
     "helmholtz_local",
     "wgradp_t",
+    "convect_weak",
+    "convect_volume_weak",
     "lin_convect_cache",
     "convect_lin_weak",
     "mass_dot",
@@ -129,6 +131,33 @@ def grad_d(mesh: SemMesh, u: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [tsum(mesh.rxd[a, j] * durst_d[a] for a in range(nd)) for j in range(nd)]
     )
+
+
+def convect_weak(mesh: SemMesh, u: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Weak-form dealiased convection of u by the velocity c:
+
+      out_i = (phi_i, c . grad u)  evaluated on the Gauss dealias grid.
+
+    u: [*lead, pts..., nel], any leading axes (one field or several, all
+    convected at once); c: [ndim, pts..., nel] (GLL grid). Each field goes
+    through one interpolation to the dealias grid, its leading axes
+    batched, and one projection back. Returns the mass-weighted residual on
+    the GLL grid."""
+    jd = mesh.jd
+    nd = mesh.ndim
+    c_d = interp_nd(jd, c, nd)
+    durst_d = interp_nd(jd, torch.stack(grad_rst(u, mesh.d, nd)), nd)  # [nd, *lead, ...]
+    s = None
+    for k in range(nd):
+        term = c_d[k] * tsum(mesh.rxd[a, k] * durst_d[a] for a in range(nd))
+        s = term if s is None else s + term
+    return interp_nd_t(jd, s * mesh.bmd, nd)
+
+
+def convect_volume_weak(mesh: SemMesh, u: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """`convect_weak` of every component of the vector field u [ndim, ...]
+    (the components are convected together, as one batch)."""
+    return convect_weak(mesh, u, c)
 
 
 def lin_convect_cache(mesh: SemMesh, base_u: torch.Tensor, base_theta=None) -> dict:

@@ -14,7 +14,10 @@ batched GEMM, no transposed copy). With TF32 off (see the package
 its own transpose (dssum, the Helmholtz kernel, a CG solve, the E apply),
 so that autograd's backward is that map and not the derivative of its
 insides: the port's counterpart of `custom_linear_solve(...,
-symmetric=True)` and of transposing a symmetric primitive in JAX.
+symmetric=True)` and of transposing a symmetric primitive in JAX. In
+forward mode (`torch.autograd.forward_ad`) the tangent of a linear map is
+the map applied to the tangent, so its `jvp` is the map itself: the
+counterpart of `jax.jvp` through those primitives.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import operator
 from typing import Callable
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 __all__ = [
     "apply_r", "apply_s", "apply_t", "grad_rst", "grad_rst_t", "interp_nd", "interp_nd_t", "tsum",
@@ -32,23 +36,36 @@ __all__ = [
 
 
 class _Linear(torch.autograd.Function):
+    """forward receives the primal x (never a dual tensor), so op runs
+    outside both modes of autograd; backward and jvp are the only rules."""
+
     @staticmethod
     def forward(ctx, x, op, transpose):
-        ctx.transpose = transpose
+        ctx.op, ctx.transpose = op, transpose
         return op(x)
 
     @staticmethod
     def backward(ctx, g):
         return ctx.transpose(g), None, None
 
+    @staticmethod
+    def jvp(ctx, t, _op, _transpose):
+        return ctx.op(t)
+
+
+def _is_dual(x: torch.Tensor) -> bool:
+    """x carries a forward-mode tangent (inside a `forward_ad.dual_level`)."""
+    return fwAD._current_level >= 0 and fwAD.unpack_dual(x).tangent is not None
+
 
 def linear(op: Callable, x: torch.Tensor, transpose: Callable | None = None) -> torch.Tensor:
     """op(x) for a linear op. When x takes part in autograd, the backward
     applies `transpose` (Euclidean; op itself when None, for a symmetric op)
     to the cotangent, so a reverse pass reuses op as it is (its kernel, its
-    built-once CG) instead of differentiating its insides; otherwise this
-    is op(x)."""
-    if x.requires_grad and torch.is_grad_enabled():
+    built-once CG) instead of differentiating its insides. When x carries a
+    forward-mode tangent, the tangent's image is op applied to it, by the
+    same reuse. Otherwise this is op(x)."""
+    if (x.requires_grad and torch.is_grad_enabled()) or _is_dual(x):
         return _Linear.apply(x, op, op if transpose is None else transpose)
     return op(x)
 

@@ -1,8 +1,10 @@
 """The port's code that runs only on the card: the CUDA kernel against its
 plain torch twin, its run counter in device memory, the CG iterations
-captured as CUDA graphs against the same CG on CPU tensors, and the
-backward passes of the exact discrete adjoint (the kernel's, the solves',
-the recorded propagator's) against the same on CPU tensors.
+captured as CUDA graphs against the same CG on CPU tensors, the backward
+passes of the exact discrete adjoint (the kernel's, the solves', the
+recorded propagator's) and the forward mode of the kernel and the solves
+against the same on CPU tensors, and one nonlinear step with an inflow
+lift.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -16,6 +18,8 @@ The graphed CGs on the card and the eager ones on the CPU run the same
 arithmetic in another summation order: same iteration count, rel 1e-10 in
 f64.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -270,3 +274,91 @@ def test_rmatvec_matches_cpu(card):
             assert helmholtz_kernel.launches(card) == sum(stats[dev]["helmholtz"])
     assert props[card][1].adjoint.tape_bytes > 0
     assert float((out[card].cpu() - out["cpu"]).abs().max()) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# forward mode and the nonlinear step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, nel, lead", EDGE_CASES)
+def test_helmholtz2d_jvp_is_the_kernel(card, n, nel, lead, dtype):
+    """Under forward mode the kernel's tangent is the kernel on the tangent
+    (H is linear in u): one more run on the device counter per tangent,
+    against the twin's forward-mode derivative on the same inputs."""
+    import torch.autograd.forward_ad as fwAD
+
+    u, *args = random_args(n, nel, lead, dtype, card)
+    tan = random_args(n, nel, lead, dtype, card, seed=1)[0]
+    helmholtz_kernel.reset_launches(card)
+    with fwAD.dual_level():
+        out = helmholtz_kernel.helmholtz2d(fwAD.make_dual(u, tan), *args)
+        primal, tangent = fwAD.unpack_dual(out)
+        assert helmholtz_kernel.launches(card) == 2
+        ref = fwAD.unpack_dual(helmholtz_kernel.helmholtz2d_plain(fwAD.make_dual(u, tan), *args))
+    assert rel(primal, ref.primal) <= TOL[dtype]
+    assert rel(tangent, ref.tangent) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("which", ["velocity", "pressure"])
+def test_solve_jvp_matches_cpu(card, which):
+    """The solves' forward mode (the tangent re-solved with the built-once
+    CG: a graph replay on the card) against the same on CPU tensors."""
+    import torch.autograd.forward_ad as fwAD
+
+    rng = np.random.default_rng(9)
+    out, stats, data = {}, {}, None
+    for dev in (card, "cpu"):
+        m = box_mesh((8, 4), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        shape, fn = _solve_of(which, m)
+        if data is None:
+            data = rng.standard_normal(shape), rng.standard_normal(shape)
+        if which == "pressure":  # a right-hand side in E's range, as div_weak makes
+            data = tuple(d - d.mean() for d in data)
+        stats[dev] = {}
+        with fwAD.dual_level():
+            r = fwAD.make_dual(torch.as_tensor(data[0], device=dev),
+                               torch.as_tensor(data[1], device=dev))
+            out[dev] = fwAD.unpack_dual(fn(r, stats[dev])).tangent
+    counts = next(iter(stats["cpu"].values()))
+    assert stats[card] == stats["cpu"] and len(counts) == 2 and min(counts) > 3
+    assert rel(out[card], out["cpu"]) <= 1e-10
+
+
+def test_step_matches_cpu(card):
+    """One nonlinear BDF3 step on a cylinder annulus with an inflow-outflow
+    outer boundary (the pressure pinned at the outflow, the free stream as
+    a non-zero lift through the kernel), on the card and on the CPU, f64;
+    the kernel runs once per velocity CG iteration, once for the lift and
+    once for the warm start's operator apply."""
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+
+    rng = np.random.default_rng(12)
+    out, stats, data = {}, {}, None
+    for dev in (card, "cpu"):
+        m = annulus_mesh(3, 8, r_in=0.5, r_out=4.0, order=5, grading=1.3, outer_bc="vO",
+                         shift=0.2, device=dev)
+        cfg = ns.FlowConfig(viscosity=0.02, dt=1e-2, vtol=1e-12, ptol=1e-12)
+        r = torch.sqrt(m.x[0] ** 2 + m.x[1] ** 2)
+        free = (r > 0.5 + 1e-8).to(m.dtype)
+        ub = torch.stack([free, 0 * free])
+        if data is None:
+            shape = tuple(m.bm1.shape)
+            data = [rng.standard_normal(s) for s in ((2,) + shape, tuple(m.bm2.shape),
+                                                      (2, 2) + shape, (2, 2) + shape)]
+        u, p, ulag, nlag = (torch.as_tensor(d, device=dev) for d in data)
+        st = ns.initial_state(m, cfg, u=sem.dsavg(m, u), p=p)
+        st = dataclasses.replace(st, ulag=sem.dsavg(m, ulag), nlag=0.1 * nlag)
+        vdiag, tdiags = ns.bdf3_diags(m, cfg)
+        (vsolve, tsolves), = ns.velocity_solvers(m, cfg, [3], vdiag, tdiags).values()
+        (psolve,) = ns.pressure_solvers(m, cfg, [3], pc_e=build_e_preconditioner(m)).values()
+        stats[dev] = {}
+        helmholtz_kernel.reset_launches(card)
+        out[dev] = ns.step(m, cfg, st, 3, psolve, vsolve, tsolves, ub=ub, stats=stats[dev])
+        if dev == card:
+            assert helmholtz_kernel.launches(card) == stats[dev]["helmholtz"][0] + 2
+    assert stats[card] == stats["cpu"]
+    for k in ("u", "p"):
+        assert rel(getattr(out[card], k), getattr(out["cpu"], k)) <= 1e-10, k
+    assert float((out["cpu"].u[0] * (1 - m.vmask[0]) * (m.x[0] < -1)).max()) == 1.0

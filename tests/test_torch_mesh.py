@@ -87,8 +87,8 @@ def test_mesh_defaults_to_the_card(builder):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, chip_smoke.py and
-    tools/profile_torch_step.py import without pulling in jax or
+    """Every module of the port, chip_smoke.py, tools/profile_torch_step.py
+    and tools/newton_floor.py import without pulling in jax or
     neklab_tpu."""
     code = """
 import importlib, importlib.util, pkgutil, sys
@@ -98,8 +98,9 @@ assert "neklab_tpu_torch.ops.helmholtz_kernel" in mods and len(mods) > 20, mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-spec = importlib.util.spec_from_file_location("profile_torch_step", "tools/profile_torch_step.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ("profile_torch_step", "newton_floor"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "neklab_tpu"))
 assert not bad, bad
 """

@@ -1,7 +1,8 @@
-"""Where the time of one linearized step goes on a CUDA card, for the port
+"""Where the time of one step goes on a CUDA card, for the port
 (neklab_tpu_torch), f32.
 
-    python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint]
+    python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint,
+                                                 cyl50-nonlinear]
                                         [--nsteps 20]
 
 Cases: `re7500` is the Poiseuille Re=7500 `medium` propagator of
@@ -10,11 +11,14 @@ derives it), `box2d` the box2d 131k propagator of phase 5. A case with
 `-adjoint` profiles the same propagator's exact adjoint instead (an
 `AdjointPropagator` recorded over the window's `nsteps` steps, at
 ExponentialPropagator's adjoint tolerances, 10x tighter); its "step" is one
-step of the backward pass. For each, from a B-normalized state (the
-sustained protocol):
+step of the backward pass. `cyl50-nonlinear` is the nonlinear step of the
+cylinder wake at Re=50 (`medium`, phase 8: 160 elements at order 6, dt =
+5e-3, the free stream as the inflow lift), continuing from 200 steps of the
+example's smooth start. For each, from a B-normalized state (the sustained
+protocol; the nonlinear case from its own state):
   * host ms/step of three unprofiled windows of `nsteps` steps;
   * velocity (Helmholtz) and pressure (E) CG iterations per step, as the
-    solvers of that propagate report them (`propagate(..., stats=)`);
+    solvers report them (`propagate(..., stats=)`, `advance(..., stats=)`);
   * helmholtz2d kernel runs per step, from the kernel's device counter
     (graph replays included);
   * one `torch.profiler` window: the host's launch calls per step
@@ -75,6 +79,34 @@ def build_case(name, dev):
             velocity_solvers(mesh, cfg, 3, vdiag, None))
 
 
+def nonlinear_case(dev, nsteps):
+    """-> (mesh, dt, run, state) for the cylinder's nonlinear step: run(state,
+    stats) advances nsteps at the scheme's order with solvers built once."""
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+
+    mesh = annulus_mesh(8, 20, r_in=0.5, r_out=20.0, order=6, grading=1.5, outer_bc="vO",
+                        shift=0.25, dtype=torch.float32, device=dev)
+    fc = ns.FlowConfig(viscosity=1 / 50, dt=5e-3, vtol=3e-6, ptol=3e-6)
+    r = torch.sqrt(mesh.x[0] ** 2 + mesh.x[1] ** 2)
+    free = (r > 0.5 + 1e-8).to(mesh.dtype)
+    ub = torch.stack([free, torch.zeros_like(free)])
+    ramp = 1 - torch.exp(-3.0 * (r - 0.5))
+    state = ns.initial_state(mesh, fc, u=mesh.vmask * torch.stack([ramp, 0 * ramp])
+                             + (1 - mesh.vmask) * ub)
+    orders = ns.bdf_orders(fc, 3)
+    psolves = ns.pressure_solvers(mesh, fc, orders, build_e_preconditioner(mesh))
+    vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
+    state = ns.advance(mesh, fc, state, 200, ub=ub, psolves=psolves, vsolves=vsolves)
+
+    def run(st, stats=None):
+        return ns.advance(mesh, fc, st, nsteps, ub=ub, ramp=False, psolves=psolves,
+                          vsolves=vsolves, stats=stats)
+
+    return mesh, fc.dt, run, state
+
+
 def profile_case(name, dev, nsteps):
     from torch.profiler import ProfilerActivity, profile
 
@@ -83,27 +115,32 @@ def profile_case(name, dev, nsteps):
     from neklab_tpu_torch.ops import sem
 
     base, _, kind = name.partition("-")
-    mesh, cfg, cfg_adj, base_u, pc, vdiag, psolves, vsolves = build_case(base, dev)
-    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
     tape_bytes = None
-    if kind == "adjoint":
-        adj = make_adjoint_propagator(mesh, cfg_adj, base_u, th, nsteps, pc_e=pc, vdiag=vdiag)
-        tape_bytes = adj.tape_bytes
-        apply = lambda u, stats: adj(u, th, stats=stats)[0]
+    if kind == "nonlinear":
+        mesh, dt, run, u = nonlinear_case(dev, nsteps)
     else:
-        apply = lambda u, stats: propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc,
-                                           vdiag=vdiag, psolves=psolves, vsolves=vsolves,
-                                           stats=stats)[0]
+        mesh, cfg, cfg_adj, base_u, pc, vdiag, psolves, vsolves = build_case(base, dev)
+        dt = cfg.flow.dt
+        th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+        if kind == "adjoint":
+            adj = make_adjoint_propagator(mesh, cfg_adj, base_u, th, nsteps, pc_e=pc, vdiag=vdiag)
+            tape_bytes = adj.tape_bytes
+            apply = lambda u, stats: adj(u, th, stats=stats)[0]
+        else:
+            apply = lambda u, stats: propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc,
+                                               vdiag=vdiag, psolves=psolves, vsolves=vsolves,
+                                               stats=stats)[0]
 
-    def run(u, stats=None):
-        u = apply(u, stats)
-        return u / sem.mass_dot(mesh, u, u).sqrt()
+        def run(u, stats=None):
+            u = apply(u, stats)
+            return u / sem.mass_dot(mesh, u, u).sqrt()
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    u = mesh.vmask * sem.dsavg(mesh, torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen,
-                                                 dtype=mesh.dtype, device=dev))
-    u = run(u / sem.mass_dot(mesh, u, u).sqrt())  # warm-up
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        u = mesh.vmask * sem.dsavg(mesh, torch.randn((2,) + tuple(mesh.bm1.shape),
+                                                     generator=gen, dtype=mesh.dtype, device=dev))
+        u = u / sem.mass_dot(mesh, u, u).sqrt()
+    u = run(u)  # warm-up
     walls, stats, n0 = [], {}, hk.launches(dev)  # synchronizes
     for _ in range(3):
         t0 = time.perf_counter()
@@ -128,7 +165,7 @@ def profile_case(name, dev, nsteps):
         by[e.name[:60]] = (c + 1, s + e.device_time)
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:12]
     return {
-        "case": name, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": cfg.flow.dt,
+        "case": name, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": dt,
         "nsteps": nsteps, "tape_bytes": tape_bytes,
         "ms_per_step": walls,
         "cg_iters_per_step": {k: sum(v) / len(v) for k, v in stats.items()},
@@ -145,7 +182,8 @@ def profile_case(name, dev, nsteps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cases", default="re7500,box2d,re7500-adjoint,box2d-adjoint")
+    ap.add_argument("--cases",
+                    default="re7500,box2d,re7500-adjoint,box2d-adjoint,cyl50-nonlinear")
     ap.add_argument("--nsteps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
