@@ -179,28 +179,36 @@ def random_args(dev, n, nel, lead, dtype, seed):
 def kernel_phase(dev):
     """Phase 2: the kernel against its plain twin on the same CUDA inputs, at
     every shape the later phases give it (a leading axis of 2 is a velocity
-    CG iteration, one of n*n the Jacobi-diagonal probe, helmholtz_diag) and
-    at the edges of its tiling: nel not a multiple of the tile (15, 121),
-    n = 2 and n = 12, a batch of 1 and of 81. Times it against the plain
-    chain at the main path's CG shape (phase 6) and at box2d's, and alone at
-    their probe shapes."""
+    CG iteration, one of n*n the Jacobi-diagonal probe, helmholtz_diag),
+    each on its phase's mesh and coefficients, and at the edges of its
+    tiling: nel not a multiple of the tile (15, 121), n = 2 and n = 12, a
+    batch of 1 and of 81. Times it against the plain chain at the CG shapes
+    of the direct path (phase 6), of the cylinder (phase 8) and of box2d,
+    and alone at their probe shapes."""
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
 
     t0 = time.time()
     re7500 = channel(dev, torch.float32, (12, 10), 8)  # phase 6, the main path
     box2d = channel(dev, torch.float32, (64, 16), 7)  # phase 5
+    cyl = cylinder_mesh(dev, torch.float32)  # phase 8: curved, graded, 160 elements
 
     def mesh_args(m, lead):
+        """h1, h2 as phase 8's BDF3 velocity solve has them on the cylinder,
+        else as the channels' (nu = 1e-3, dt = 2e-3)."""
         g = m.g
         u = torch.randn(lead + tuple(m.bm1.shape), generator=gen, dtype=m.dtype, device=dev)
-        return (u, m.d, g[0, 0], g[0, 1], g[1, 1], m.bm1, 1e-3, (11 / 6) / 2e-3)
+        h = (1 / 50, (11 / 6) / 5e-3) if m is cyl else (1e-3, (11 / 6) / 2e-3)
+        return (u, m.d, g[0, 0], g[0, 1], g[1, 1], m.bm1) + h
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = [(f"re7500/{lead}", mesh_args(re7500, lead)) for lead in ((2,), (81,))]
     re500 = channel(dev, torch.float64, (4, 5), 6)  # phases 3 and 4
     cases += [(f"re500/{lead}", mesh_args(re500, lead)) for lead in ((2,), (49,))]
+    cases += [(f"cylinder/{lead}", mesh_args(cyl, lead)) for lead in ((2,), (49,))]
+    small = small_annulus(dev)  # phase 3n, f64
+    cases += [(f"annulus_3n/{lead}", mesh_args(small, lead)) for lead in ((2,), (36,))]
     box2d64 = channel(dev, torch.float64, (64, 16), 7)
     for m in (box2d, box2d64):
         cases += [(f"box2d_131k/{str(m.dtype)[6:]}/{lead}", mesh_args(m, lead))
@@ -226,10 +234,10 @@ def kernel_phase(dev):
         assert errs[key] <= (1e-12 if args[0].dtype == torch.float64 else 2e-5), (key, errs[key])
 
     times, probes = {}, {}
-    for m, lead in ((re7500, (81,)), (box2d, (64,))):  # the Jacobi probe
+    for m, lead in ((re7500, (81,)), (cyl, (49,)), (box2d, (64,))):  # the Jacobi probe
         args = mesh_args(m, lead)
         probes[f"{list(args[0].shape)} f32"] = device_ms(lambda: hk.helmholtz2d(*args))
-    for m in (re7500, box2d):
+    for m in (re7500, cyl, box2d):
         args = mesh_args(m, (2,))
         key = f"{list(args[0].shape)} f32"
         kern, plain = [], []
@@ -249,7 +257,10 @@ def kernel_phase(dev):
     main = times[f"[2, {n}, {n}, {re7500.nel}] f32"]
     return {"max_abs_err": max_abs, "ms": statistics.median(main["kernel_device_ms"]),
             "plain_ms": statistics.median(main["plain_device_ms"]), "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None}
+            "bound_by": main["bound_by"], "library_ms": None,
+            "by_shape": {k: {"ms": statistics.median(v["kernel_device_ms"]),
+                             "plain_ms": statistics.median(v["plain_device_ms"]),
+                             "bound_ms": v["bound_ms"]} for k, v in times.items()}}
 
 
 def parity_phase(dev):
@@ -304,6 +315,22 @@ def parity_phase(dev):
           tape_bytes=prop_c.adjoint.tape_bytes, nsteps=prop_c.nsteps, cg_iters=stats)
 
 
+def cylinder_mesh(dev, dtype):
+    """The `medium` annulus of examples/cylinder_stability.py (phase 8)."""
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+
+    return annulus_mesh(8, 20, r_in=0.5, r_out=20.0, order=6, grading=1.5, outer_bc="vO",
+                        shift=0.25, dtype=dtype, device=dev)
+
+
+def small_annulus(dev):
+    """Phase 3n's 24-element 'vO' annulus, f64."""
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+
+    return annulus_mesh(3, 8, r_in=0.5, r_out=4.0, order=5, grading=1.3, outer_bc="vO",
+                        shift=0.2, device=dev)
+
+
 def cylinder_lift(mesh):
     """The free stream (1, 0) outside the cylinder r = 0.5: the masks keep it
     on the inflow boundary (examples/cylinder_stability.py)."""
@@ -327,7 +354,6 @@ def nonlinear_phase(dev):
     start's apply to the tangent, while the lift is a constant with no
     tangent (three per step)."""
     from neklab_tpu_torch.krylov.space import tree_axpby
-    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
     from neklab_tpu_torch.models.linearized import LinConfig
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.models.precond import build_e_preconditioner
@@ -340,8 +366,7 @@ def nonlinear_phase(dev):
     nsteps = 20
     out, runs, stats, systems = {}, {}, {}, {}
     for d in (dev, "cpu"):
-        mesh = annulus_mesh(3, 8, r_in=0.5, r_out=4.0, order=5, grading=1.3, outer_bc="vO",
-                            shift=0.2, device=d)
+        mesh = small_annulus(d)
         ub, r = cylinder_lift(mesh)
         ramp = 1 - torch.exp(-3.0 * (r - 0.5))
         u0 = mesh.vmask * torch.stack([ramp, 0 * ramp]) + (1 - mesh.vmask) * ub
@@ -437,8 +462,8 @@ def box2d_phase(dev):
     adjoint at ExponentialPropagator's adjoint tolerances (10x tighter),
     sustained, in turns with the direct map, and the bytes its recorded tape
     holds on the card."""
-    from neklab_tpu_torch.models.linearized import (LinConfig, make_adjoint_propagator,
-                                                    pressure_solvers, propagate, velocity_solvers)
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, make_adjoint_propagator, propagate
     from neklab_tpu_torch.models.navier_stokes import FlowConfig, helmholtz_diag
     from neklab_tpu_torch.models.precond import build_e_preconditioner
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
@@ -459,8 +484,9 @@ def box2d_phase(dev):
     vdiag = helmholtz_diag(mesh, fc.viscosity, g0 / fc.dt, mesh.vmask)
     nsteps, dof = 100, 2 * mesh.nel * mesh.npts
     # once, as ExponentialPropagator builds them
-    psolves = pressure_solvers(mesh, cfg, nsteps, pc)
-    vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag, None)
+    orders = ns.bdf_orders(fc, nsteps)
+    psolves = ns.pressure_solvers(mesh, fc, orders, pc)
+    vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag, None)
 
     def prop(u, nst=nsteps, stats=None):
         return propagate(mesh, cfg, base_u, th, u, th, nst, pc_e=pc, vdiag=vdiag,
@@ -629,9 +655,12 @@ def growth_phase(dev, mu1: complex) -> tuple[int, int]:
 ORACLE_MU1, ORACLE_BAND = 1.0156, 1e-4  # the reference's cylinder Re=50 oracle (BASELINE.md)
 
 
-def cylinder_phase(dev, nspin: int = 8000, kdim: int = 64, maxiter: int = 12) -> dict:
+def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
+                   maxiter: int = 12) -> dict:
     """Phase 8: the cylinder wake at Re=50, `medium` preset
-    (examples/cylinder_stability.py:56-99), f32, through the user entry
+    (examples/cylinder_stability.py:56-99), in dtype (f32; `python3
+    chip_smoke.py --cylinder float64` runs it alone in f64, which separates
+    the mesh's distance from the oracle from float32's), through the user entry
     points: `annulus_mesh` (160 elements, order 6, 'vO'), `advance` from the
     example's smooth start with the free stream as the inflow lift (nspin
     steps), `FixedPointSystem` (tau = 0.5) and `newton_fixed_point_iteration`
@@ -644,7 +673,6 @@ def cylinder_phase(dev, nspin: int = 8000, kdim: int = 64, maxiter: int = 12) ->
     from neklab_tpu_torch.analysis import (linear_stability_analysis_fixed_point,
                                            newton_fixed_point_iteration)
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
-    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
     from neklab_tpu_torch.models.linearized import LinConfig
     from neklab_tpu_torch.models.navier_stokes import FlowConfig, advance, initial_state
     from neklab_tpu_torch.models.precond import build_e_preconditioner
@@ -653,8 +681,7 @@ def cylinder_phase(dev, nspin: int = 8000, kdim: int = 64, maxiter: int = 12) ->
     from neklab_tpu_torch.vectors import flow_vector, flow_vector_space
 
     t0 = time.time()
-    mesh = annulus_mesh(8, 20, r_in=0.5, r_out=20.0, order=6, grading=1.5, outer_bc="vO",
-                        shift=0.25, dtype=torch.float32, device=dev)
+    mesh = cylinder_mesh(dev, dtype)
     dt = 5e-3
     fc = FlowConfig(viscosity=1 / 50, dt=dt, vtol=3e-6, ptol=3e-6)
     cfg = LinConfig(flow=fc)
@@ -726,8 +753,8 @@ def main() -> None:
     if sys.argv[1:] == ["--oracle"]:
         oracle_phase(dev)
         return
-    if sys.argv[1:] == ["--cylinder"]:
-        cylinder_phase(dev)
+    if sys.argv[1:2] == ["--cylinder"]:
+        cylinder_phase(dev, getattr(torch, sys.argv[2]) if sys.argv[2:] else torch.float32)
         return
 
     # ---- 0: device ----

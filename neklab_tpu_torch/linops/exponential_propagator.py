@@ -16,9 +16,8 @@ import torch
 
 from ..krylov.linop import LinearOperator
 from ..mesh.core import SemMesh
-from ..models.linearized import (AdjointPropagator, LinConfig, make_adjoint_propagator,
-                                 pressure_solvers, propagate, velocity_solvers)
-from ..models.navier_stokes import bdf3_diags
+from ..models import navier_stokes as ns
+from ..models.linearized import AdjointPropagator, LinConfig, make_adjoint_propagator, propagate
 from ..models.precond import build_e_preconditioner
 from ..utils.timestep import cfl_dt, clamp_cfl, horizon_steps
 
@@ -65,9 +64,10 @@ class ExponentialPropagator(LinearOperator):
         self.cfg = dataclasses.replace(cfg, flow=dataclasses.replace(cfg.flow, dt=self.dt))
         self.pc_e = build_e_preconditioner(mesh)
         fc = self.cfg.flow
-        self.vdiag, self.tdiags = bdf3_diags(mesh, fc)
-        self.psolves = pressure_solvers(mesh, self.cfg, self.nsteps, self.pc_e)
-        self.vsolves = velocity_solvers(mesh, self.cfg, self.nsteps, self.vdiag, self.tdiags)
+        self.vdiag, self.tdiags = ns.bdf3_diags(mesh, fc)
+        orders = ns.bdf_orders(fc, self.nsteps)
+        self.psolves = ns.pressure_solvers(mesh, fc, orders, self.pc_e)
+        self.vsolves = ns.velocity_solvers(mesh, fc, orders, self.vdiag, self.tdiags)
         f = float(adjoint_tol_factor)
         self.cfg_adj = self.cfg if f == 1.0 else dataclasses.replace(
             self.cfg, flow=dataclasses.replace(fc, vtol=fc.vtol * f, ptol=fc.ptol * f))

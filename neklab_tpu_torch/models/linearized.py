@@ -125,7 +125,7 @@ def step_lin(
     """One linearized BDF(order)/EXT(order) step (homogeneous BCs).
 
     psolve, vsolve, tsolves: this order's pressure, velocity and scalar
-    solvers (`pressure_solvers`, `velocity_solvers`).
+    solvers (`navier_stokes.pressure_solvers`, `navier_stokes.velocity_solvers`).
     stats: optional dict; the velocity and pressure CG iteration counts are
     appended to stats["helmholtz"] and stats["pressure"]."""
     fc = cfg.flow
@@ -179,21 +179,6 @@ def step_lin(
     )
 
 
-def pressure_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, pc_e=None) -> dict:
-    """{order: pressure solver} for the BDF orders `propagate` steps with
-    (the self-starting ramp, then the scheme's order)."""
-    return ns.pressure_solvers(mesh, cfg.flow, ns.bdf_orders(cfg.flow, nsteps), pc_e)
-
-
-def velocity_solvers(mesh: SemMesh, cfg: LinConfig, nsteps: int, vdiag, tdiags) -> dict:
-    """{order: (velocity solver, [scalar solvers])} for the BDF orders
-    `propagate` steps with; vdiag and tdiags (the BDF3 Jacobi diagonals;
-    tdiags may be None without scalars) serve every order, as in the
-    reference. The nonlinear `advance` at the same dt takes the same
-    solvers (`navier_stokes.velocity_solvers`)."""
-    return ns.velocity_solvers(mesh, cfg.flow, ns.bdf_orders(cfg.flow, nsteps), vdiag, tdiags)
-
-
 def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nsteps: int,
               pc_e=None, vdiag=None, tdiags=None, psolves=None, vsolves=None, stats=None):
     """Linear map M: (u0, theta0) -> (u, theta) after nsteps of the
@@ -201,8 +186,9 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     pressure — the exponential-propagator matvec exp(tau A), tau = nsteps*dt.
 
     vdiag/tdiags: the BDF3 Jacobi diagonals; psolves and vsolves: the
-    pressure solvers (`pressure_solvers`) and the velocity and scalar
-    solvers (`velocity_solvers`). A caller that applies the map repeatedly
+    pressure solvers and the velocity and scalar solvers of the run's BDF
+    orders (`navier_stokes.pressure_solvers`, `velocity_solvers` with
+    `bdf_orders(cfg.flow, nsteps)`). A caller that applies the map repeatedly
     builds them once (the diagonals serve the ramp steps too); they are
     built here when None. stats: as in `step_lin`, one entry per step."""
     fc = cfg.flow
@@ -210,10 +196,11 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     tmax = min(fc.torder, 3)
     vdiag3, tdiags3 = ns.bdf3_diags(mesh, fc, vdiag, tdiags)
     ccache = sem.lin_convect_cache(mesh, base_u, base_theta if fc.nscal else None)
+    orders = ns.bdf_orders(fc, nsteps)
     if psolves is None:
-        psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
+        psolves = ns.pressure_solvers(mesh, fc, orders, pc_e)
     if vsolves is None:
-        vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag3, tdiags3)
+        vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag3, tdiags3)
 
     for k in range(nsteps):
         order = min(k + 1, tmax)
@@ -284,10 +271,11 @@ def make_adjoint_propagator(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, n
     step's other ops. Every backward re-solves with the same solvers."""
     fc = cfg.flow
     vdiag, tdiags = ns.bdf3_diags(mesh, fc, vdiag, tdiags)
+    orders = ns.bdf_orders(fc, nsteps)
     if psolves is None:
-        psolves = pressure_solvers(mesh, cfg, nsteps, pc_e)
+        psolves = ns.pressure_solvers(mesh, fc, orders, pc_e)
     if vsolves is None:
-        vsolves = velocity_solvers(mesh, cfg, nsteps, vdiag, tdiags)
+        vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag, tdiags)
     shape = tuple(mesh.bm1.shape)
     inputs = tuple(torch.zeros((lead,) + shape, dtype=mesh.dtype, device=mesh.device,
                                requires_grad=True) for lead in (mesh.ndim, cfg.nscal))

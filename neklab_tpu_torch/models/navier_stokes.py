@@ -367,9 +367,10 @@ def step(
     nstar = alphas[0] * n_u + alphas[1] * state.nlag[0] + alphas[2] * state.nlag[1]
     bsum = betas[0] * state.u + betas[1] * state.ulag[0] + betas[2] * state.ulag[1]
     rhs = mesh.bm1 * bsum * (cfg.rho / dt) + nstar + stokes.grad_weak_t(mesh, pstar)
-    # warm start: the extrapolated velocity. In float32 a cold solve's
-    # rounding, relative to u, sets the floor of a Newton residual over
-    # ~100 steps; warm, the CG works on the O(dt^k) correction.
+    # warm start: the extrapolated velocity. A cold solve's float32
+    # rounding is relative to u; warm, the CG works on the O(dt^k)
+    # correction, which halves float32's bias of a 100-step map (the
+    # residual a float32 Newton can reach on the cylinder).
     uext = alphas[0] * state.u + alphas[1] * state.ulag[0] + alphas[2] * state.ulag[1]
     ustar = vsolve(rhs, ub, stats=stats, x0=uext)
 

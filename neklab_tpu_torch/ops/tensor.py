@@ -55,7 +55,7 @@ class _Linear(torch.autograd.Function):
 
 def _is_dual(x: torch.Tensor) -> bool:
     """x carries a forward-mode tangent (inside a `forward_ad.dual_level`)."""
-    return fwAD._current_level >= 0 and fwAD.unpack_dual(x).tangent is not None
+    return fwAD.unpack_dual(x).tangent is not None
 
 
 def linear(op: Callable, x: torch.Tensor, transpose: Callable | None = None) -> torch.Tensor:

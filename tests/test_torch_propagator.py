@@ -32,6 +32,7 @@ from neklab_tpu_torch.krylov.space import KrylovBasis
 from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
 from neklab_tpu_torch.mesh.box import box_mesh
 from neklab_tpu_torch.models import linearized as lin
+from neklab_tpu_torch.models import navier_stokes as ns
 from neklab_tpu_torch.models.navier_stokes import FlowConfig
 from neklab_tpu_torch.utils.orr_sommerfeld import orr_sommerfeld_spectrum, shear_mode_eigenvalues
 from neklab_tpu_torch.vectors import flow_vector, flow_vector_space, project_c0
@@ -95,8 +96,10 @@ def test_propagate_with_prebuilt_solvers_matches_reference_twice(poiseuille):
     th = np.zeros((0,) + tuple(jmesh.bm1.shape))
     ref = jlin.propagate(jmesh, jprop.cfg, jprop.base_u, jprop.base_theta, jnp.asarray(u),
                          jnp.asarray(th), jprop.nsteps, pc_e=jprop.pc_e, vdiag=jprop.vdiag)[0]
-    psolves = lin.pressure_solvers(mesh, prop.cfg, prop.nsteps, prop.pc_e)
-    vsolves = lin.velocity_solvers(mesh, prop.cfg, prop.nsteps, prop.vdiag, prop.tdiags)
+    fc = prop.cfg.flow
+    orders = ns.bdf_orders(fc, prop.nsteps)
+    psolves = ns.pressure_solvers(mesh, fc, orders, prop.pc_e)
+    vsolves = ns.velocity_solvers(mesh, fc, orders, prop.vdiag, prop.tdiags)
     assert sorted(vsolves) == sorted(psolves) == [1, 2, 3]
     for _ in range(2):
         out = lin.propagate(mesh, prop.cfg, prop.base_u, prop.base_theta, t(u), t(th),

@@ -52,7 +52,8 @@ def build_case(name, dev):
     `propagate` and `make_adjoint_propagator`."""
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
     from neklab_tpu_torch.mesh.box import box_mesh
-    from neklab_tpu_torch.models.linearized import LinConfig, pressure_solvers, velocity_solvers
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig
     from neklab_tpu_torch.models.navier_stokes import FlowConfig, helmholtz_diag
     from neklab_tpu_torch.models.precond import build_e_preconditioner
 
@@ -75,8 +76,9 @@ def build_case(name, dev):
     cfg_adj = LinConfig(flow=dataclasses.replace(fc, vtol=0.1 * fc.vtol, ptol=0.1 * fc.ptol))
     pc = build_e_preconditioner(mesh)
     vdiag = helmholtz_diag(mesh, fc.viscosity, (11 / 6) / fc.dt, mesh.vmask)
-    return (mesh, cfg, cfg_adj, base_u, pc, vdiag, pressure_solvers(mesh, cfg, 3, pc),
-            velocity_solvers(mesh, cfg, 3, vdiag, None))
+    orders = ns.bdf_orders(fc, 3)
+    return (mesh, cfg, cfg_adj, base_u, pc, vdiag, ns.pressure_solvers(mesh, fc, orders, pc),
+            ns.velocity_solvers(mesh, fc, orders, vdiag, None))
 
 
 def nonlinear_case(dev, nsteps):
