@@ -2,8 +2,10 @@
 
 The modal-stability eigensolves, direct and adjoint (mesh -> SEM operators
 -> BDF3/EXT3 linearized propagator -> Krylov-Schur eigs), transient growth,
-and the base flows they start from (the nonlinear BDF3/EXT3 stepper and
-Newton-Krylov over a fixed-point system) on torch tensors, with the 2-D
+the base flows they start from (the nonlinear BDF3/EXT3 stepper and
+Newton-Krylov over a fixed-point system), resolvent analysis, the
+wavenumber-projected propagator, periodic orbits with their Floquet
+multipliers, and OTD mode evolution on torch tensors, with the 2-D
 local Helmholtz apply as a hand-written CUDA kernel for Hopper
 (`ops/helmholtz_kernel.py`, `csrc/helmholtz2d.cu`). The JAX package
 `neklab_tpu` is the reference the port is tested against; this package
@@ -27,3 +29,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+# resolvent, wavenumber-projected stability, periodic orbits (Floquet), OTD
+from .linops.projected import ProjectedPropagator  # noqa: E402
+from .linops.resolvent import Resolvent, complex_pair_space  # noqa: E402
+from .models.linearized import adjoint_explicit_lin_map, propagate_forced  # noqa: E402
+from .otd import (OtdOpts, OtdResult, apply_l, load_otd_ics, load_otd_restart,  # noqa: E402
+                  orthonormalize_states, otd_analysis, otd_chunk, outpost_otd_modes,
+                  save_otd_restart)
+from .systems.periodic_orbit import MonodromyOperator, PeriodicOrbitSystem  # noqa: E402
+from .utils.fldfile import read_fld, write_fld  # noqa: E402
+from .vectors import ext_flow_vector, ext_flow_vector_space, get_size  # noqa: E402

@@ -7,8 +7,10 @@ step as the nonlinear solver and the convection linearized,
 
 homogeneous Dirichlet BCs (the perturbation masks). `propagate` is the
 exponential-propagator matvec: a BDF1/BDF2 self-starting ramp, then BDF3
-steps in a Python loop. Counterpart of `neklab_tpu.models.linearized`
-(the chunked and forced forms are later ROADMAP items).
+steps in a Python loop; `propagate_forced` adds a harmonic body force
+(the resolvent's right-hand side). Counterpart of
+`neklab_tpu.models.linearized` (its chunked form bounded the TPU compiler's
+program size and has no counterpart here).
 
 Adjoint: the EXACT discrete adjoint with respect to the mass-weighted inner
 product <u, v> = sum(u v bm1),
@@ -26,6 +28,7 @@ the E apply are their own backward (`tensor.linear`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -102,11 +105,47 @@ def _explicit_lin_map(mesh, cfg: LinConfig, conv_cache, theta_shape):
     return emap
 
 
-def _lin_terms(mesh, cfg: LinConfig, u, theta, base_u, base_theta, conv_cache=None):
-    """Weak linearized explicit terms about (base_u, base_theta)."""
-    if conv_cache is None:
-        conv_cache = sem.lin_convect_cache(mesh, base_u, base_theta)
-    return _explicit_lin_map(mesh, cfg, conv_cache, tuple(theta.shape))(u, theta)
+def adjoint_explicit_lin_map(mesh, cfg: LinConfig, conv_cache, theta_shape):
+    """Exact transpose of the explicit weak operator (`_explicit_lin_map`).
+
+    For C0 fields the assembled bilinear form is a(u, v) = sum E(u) . v over
+    local copies, so the adjoint weak form is the plain Euclidean transpose
+    of the LOCAL map. The reference takes it from `jax.linear_transpose`;
+    here E is recorded once on autograd's tape from zero inputs (E is
+    linear, so one tape serves every call) and each call is a backward of
+    it: exact at the discrete level (dealiasing, metric terms, coupling
+    forces included). Returns eadj(v, psi) -> (w_u, w_theta)."""
+    emap = _explicit_lin_map(mesh, cfg, conv_cache, theta_shape)
+    shape = tuple(mesh.bm1.shape)
+    inputs = tuple(torch.zeros(s, dtype=mesh.dtype, device=mesh.device, requires_grad=True)
+                   for s in ((mesh.ndim,) + shape, tuple(theta_shape)))
+    with torch.enable_grad():
+        outputs = emap(*inputs)
+
+    def eadj(v, psi):
+        pairs = [(o, g) for o, g in zip(outputs, (v, psi)) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs],
+                                    retain_graph=True, allow_unused=True)
+        return tuple(torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs))
+
+    return eadj
+
+
+def _lin_terms(mesh, cfg: LinConfig, u, theta, base_u, base_theta, force=None, source=None,
+               conv_cache=None, emap=None):
+    """Weak linearized explicit terms about (base_u, base_theta), plus the
+    body force and scalar source (strong form) when given. emap: overrides
+    the explicit operator (e.g. its adjoint, for adjoint OTD)."""
+    if emap is None:
+        if conv_cache is None:
+            conv_cache = sem.lin_convect_cache(mesh, base_u, base_theta)
+        emap = _explicit_lin_map(mesh, cfg, conv_cache, tuple(theta.shape))
+    n_u, n_t = emap(u, theta)
+    if force is not None:
+        n_u = n_u + mesh.bm1 * force
+    if cfg.nscal and source is not None:
+        n_t = n_t + mesh.bm1 * source
+    return n_u, n_t
 
 
 def step_lin(
@@ -121,20 +160,27 @@ def step_lin(
     tsolves,
     conv_cache=None,
     stats=None,
+    force=None,
+    source=None,
+    emap=None,
 ) -> PertState:
     """One linearized BDF(order)/EXT(order) step (homogeneous BCs).
 
     psolve, vsolve, tsolves: this order's pressure, velocity and scalar
     solvers (`navier_stokes.pressure_solvers`, `navier_stokes.velocity_solvers`).
     stats: optional dict; the velocity and pressure CG iteration counts are
-    appended to stats["helmholtz"] and stats["pressure"]."""
+    appended to stats["helmholtz"] and stats["pressure"]. force, source: a
+    body force [ndim, ...] and scalar sources [nscal, ...] for this step
+    (the reference's forcing hook: resolvent forcing, OTD rank coupling).
+    emap: overrides the explicit operator (`adjoint_explicit_lin_map` for
+    adjoint OTD)."""
     fc = cfg.flow
     dt = fc.dt
     g0, betas = _BDF[order]
     alphas = _EXT[order]
 
-    n_u, n_t = _lin_terms(mesh, cfg, state.u, state.theta, base_u, base_theta,
-                          conv_cache=conv_cache)
+    n_u, n_t = _lin_terms(mesh, cfg, state.u, state.theta, base_u, base_theta, force, source,
+                          conv_cache=conv_cache, emap=emap)
 
     # pressure treatment mirrors the nonlinear step (cfg.flow.pextrap)
     extrapolate = fc.pextrap >= 2 and order >= 2
@@ -207,6 +253,69 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
         vsolve, tsolves = vsolves[order]
         state = step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
                          tsolves, conv_cache=ccache, stats=stats)
+    return state.u, state.theta
+
+
+def propagate_forced(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, f_re, f_im,
+                     omega: float, nsteps: int, t0: float = 0.0, sign: int = 1, pc_e=None,
+                     vdiag=None, tdiags=None, s_re=None, s_im=None, psolves=None, vsolves=None,
+                     stats=None):
+    """Integrate the linearized equations with the harmonic body force
+    Re[(f_re + i f_im) e^{i sign omega t}] = f_re cos(w t) - sign f_im sin(w t)
+    (and scalar sources s_re, s_im likewise), from (u0, theta0): the
+    resolvent's evaluate_rhs. Solvers as in `propagate`.
+
+    The ramp's steps take the force at their own time; after the ramp the
+    force rides as a phase-rotating complex amplitude z = (f_re + i sign
+    f_im) e^{i w t}, rotated by e^{i w dt} per step, force = Re z: the
+    reference's recurrence and arithmetic. The map is linear in (u0,
+    theta0, f, s), so autograd's tape of it is its transpose."""
+    fc = cfg.flow
+    state = pert_initial(mesh, cfg, u0, theta0)
+    tmax = min(fc.torder, 3)
+    vdiag3, tdiags3 = ns.bdf3_diags(mesh, fc, vdiag, tdiags)
+    ccache = sem.lin_convect_cache(mesh, base_u, base_theta if fc.nscal else None)
+    orders = ns.bdf_orders(fc, nsteps)
+    if psolves is None:
+        psolves = ns.pressure_solvers(mesh, fc, orders, pc_e)
+    if vsolves is None:
+        vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag3, tdiags3)
+    has_source = s_re is not None and s_re.numel() > 0
+
+    def run(state, order, force, source):
+        vsolve, tsolves = vsolves[order]
+        return step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
+                        tsolves, conv_cache=ccache, stats=stats, force=force, source=source)
+
+    n_ramp = min(fc.torder - 1, nsteps)
+    for k in range(n_ramp):
+        ph = omega * (t0 + k * fc.dt)
+        c, sn = math.cos(ph), math.sin(ph)
+        force = c * f_re - sign * sn * f_im
+        source = c * s_re - sign * sn * s_im if has_source else None
+        state = run(state, k + 1, force, source)
+
+    remaining = nsteps - n_ramp
+    if remaining > 0:
+        ph0 = omega * (t0 + n_ramp * fc.dt)
+        c0, s0 = math.cos(ph0), math.sin(ph0)
+        dph = omega * fc.dt
+        cd, sd = math.cos(dph), math.sin(dph)
+
+        def rot0(re, im):
+            im = sign * im
+            return c0 * re - s0 * im, s0 * re + c0 * im
+
+        def rot_step(zr, zi):
+            return cd * zr - sd * zi, sd * zr + cd * zi
+
+        zr, zi = rot0(f_re, f_im)
+        wr, wi = rot0(s_re, s_im) if has_source else (None, None)
+        for _ in range(remaining):
+            state = run(state, tmax, zr, wr if fc.nscal else None)
+            zr, zi = rot_step(zr, zi)
+            if has_source:
+                wr, wi = rot_step(wr, wi)
     return state.u, state.theta
 
 

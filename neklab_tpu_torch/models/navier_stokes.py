@@ -15,7 +15,8 @@ solves; here every CG is a `PCG` built once per (dt, BDF order) and, on the
 card, captured as a CUDA graph when it is built. So `advance` takes its
 solvers prebuilt (`pressure_solvers`, `velocity_solvers`), as the
 linearized `propagate` does, and builds them only when the caller passes
-none. The state's `time` is a host float. Unlike the reference, the
+none. The state's `time` is a host float (a 0-d tensor when dt carries a
+forward-mode tangent, see `advance`). Unlike the reference, the
 velocity and scalar solves start from the extrapolated fields (see
 `step`). Cross-solve recycling (the reference's `recycle=`) is not ported.
 """
@@ -30,7 +31,7 @@ import torch
 
 from ..mesh.core import SemMesh
 from ..ops import sem
-from ..ops.tensor import linear
+from ..ops.tensor import is_dual, linear, tangent_part
 from ..utils.timestep import cfl_dt, clamp_cfl
 from . import stokes
 from .solvers import PCG, linear_solve, local_diagonal
@@ -78,7 +79,7 @@ class FlowState:
     tlag: torch.Tensor  # [torder-1, nscal, ...]
     ntlag: torch.Tensor  # [torder-1, nscal, ...]
     plag: torch.Tensor  # [1, pts2..., nel] previous pressure
-    time: float
+    time: float  # a 0-d tensor when dt carries a forward-mode tangent
 
 
 def initial_state(mesh: SemMesh, cfg: FlowConfig, u=None, theta=None, p=None) -> FlowState:
@@ -146,7 +147,12 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
     entered as the shift y = y0 + delta with op(delta) = b - op(y0), so the
     map stays linear and equals the cold solve to the CG's tolerance. The
     CG then works on the correction alone: fewer iterations, and its
-    float32 rounding scales with the correction instead of with u."""
+    float32 rounding scales with the correction instead of with u.
+
+    h2_now: h2 again, as `step` computes it from its dt; when that carries
+    a forward-mode tangent, the operator, the lift and the warm start carry
+    h2's tangent too: the solve's tangent is op^-1 (b' - h2' M y),
+    with M = d op / d h2 the masked assembled mass term."""
     sqw = torch.sqrt(mesh.vmult)
     msq = mask * sqw
 
@@ -168,18 +174,30 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
                        device=mesh.device)
     cg = PCG(op, like, precond=lambda r: r / diag)
 
-    def solve(rhs_weak, bc_val, stats=None, x0=None):
+    def mass(y):
+        """(d op / d h2) y: the masked assembled mass term of op."""
+        return msq * sem.dssum(mesh, mesh.bm1 * (mask * sem.dssum(mesh, sqw * y)))
+
+    def solve(rhs_weak, bc_val, stats=None, x0=None, h2_now=None):
         ub = (1.0 - mask) * bc_val
-        b = msq * sem.dssum(mesh, rhs_weak - sem.helmholtz_local(mesh, ub, h1, h2))
+        lift = sem.helmholtz_local(mesh, ub, h1, h2)
+        s = tangent_part(h2_now)  # h2_now's primal is the h2 of the build
+        if s is not None:
+            lift = lift + s * (mesh.bm1 * ub)
+        b = msq * sem.dssum(mesh, rhs_weak - lift)
         if b.shape != like.shape:
             raise ValueError(f"helmholtz solve: right-hand side {tuple(b.shape)}, the solver "
                              f"was built for {tuple(like.shape)}")
         log = _logger(stats, "helmholtz")
+        kw = dict(project=consistent, log=log, param=s, dop=mass)
         if x0 is None:
-            y = linear_solve(cg, b, tol, maxiter, project=consistent, log=log)
+            y = linear_solve(cg, b, tol, maxiter, **kw)
         else:
             y0 = msq * x0
-            y = y0 + linear_solve(cg, b - op(y0), tol, maxiter, project=consistent, log=log)
+            r0 = b - op(y0)
+            if s is not None:
+                r0 = r0 - s * mass(y0)
+            y = y0 + linear_solve(cg, r0, tol, maxiter, **kw)
         return ub + mask * (y / sqw)
 
     return solve
@@ -227,20 +245,30 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
 
     cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond, project=proj if pure else None)
 
-    def solve(rhs, x0=None, stats=None):
+    def solve(rhs, x0=None, stats=None, dt_over_g0_now=None):
         """x0: optional warm start (e.g. the previous step's increment),
         entered as the shift dp = x0 + delta, E delta = rhs - E x0, so it
         reaches the solve through the right-hand side and the map stays
         linear. stats: optional dict; the CG's iteration count is appended
         to stats["pressure"] (and a recorded solve's backward appends its
-        own)."""
+        own). dt_over_g0_now: dt/g0 again, as `step` computes it; when that
+        carries a forward-mode tangent, so do E and the solve. E is linear
+        in it, E(c) = (c / c0) E(c0), so the tangent of E x is
+        E x' + (c'/c0) E x and that of E^-1 r is E^-1 r' - (c'/c0) E^-1 r:
+        the solver's CG serves both."""
+        s = tangent_part(dt_over_g0_now)
         shape = rhs.shape
         rhs = to_ef(rhs)
         if x0 is not None:
             x0 = proj(to_ef(x0))
-            rhs = rhs - e_apply(x0)
+            ex = e_apply(x0)
+            if s is not None:
+                ex = ex * (1.0 + s / dt_over_g0)
+            rhs = rhs - ex
         dp = linear_solve(cg, proj(rhs), cfg.ptol, cfg.pmaxit, project=proj if pure else None,
                           log=_logger(stats, "pressure"))
+        if s is not None:
+            dp = dp * (1.0 - s / dt_over_g0)
         if x0 is not None:
             dp = dp + x0
         if pc is not None:
@@ -342,6 +370,7 @@ def step(
     tb=None,
     extra_force=None,
     stats=None,
+    dt=None,
 ) -> FlowState:
     """One BDF(order)/EXT(order) step of the nonlinear solver at cfg.dt.
 
@@ -350,8 +379,10 @@ def step(
     Dirichlet values of the velocity and scalars (zero when None), applied
     as a lift through each solve. stats: optional dict; the velocity and
     pressure CG iteration counts are appended to stats["helmholtz"] and
-    stats["pressure"]."""
-    dt = cfg.dt
+    stats["pressure"]. dt: cfg.dt again as a 0-d tensor that carries a
+    forward-mode tangent (the period of a periodic orbit, d/dT): every use
+    of dt then carries it, the solves' operators included."""
+    dt = cfg.dt if dt is None else dt
     g0, betas = _BDF[order]
     alphas = _EXT[order]
     if ub is None:
@@ -372,7 +403,7 @@ def step(
     # correction, which halves float32's bias of a 100-step map (the
     # residual a float32 Newton can reach on the cylinder).
     uext = alphas[0] * state.u + alphas[1] * state.ulag[0] + alphas[2] * state.ulag[1]
-    ustar = vsolve(rhs, ub, stats=stats, x0=uext)
+    ustar = vsolve(rhs, ub, stats=stats, x0=uext, h2_now=cfg.rho * g0 / dt)
 
     # ---- pressure correction ----
     # E carries dt/g0, so D(u* + du) = 0 reads E dp = -div u*. Warm start
@@ -381,7 +412,7 @@ def step(
     # better guess.
     dt_over_g0 = dt / (g0 * cfg.rho)
     x0 = None if cfg.pextrap >= 2 else state.p - state.plag[0]
-    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats)
+    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats, dt_over_g0_now=dt_over_g0)
     u_new = ustar + stokes.pressure_correct_velocity(mesh, dp, dt_over_g0)
     p_new = pstar + dp
 
@@ -393,7 +424,7 @@ def step(
         tbsum = betas[0] * state.theta + betas[1] * state.tlag[0] + betas[2] * state.tlag[1]
         text = alphas[0] * state.theta + alphas[1] * state.tlag[0] + alphas[2] * state.tlag[1]
         theta_new = torch.stack([tsolves[i](mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i], tb[i],
-                                            x0=text[i])
+                                            x0=text[i], h2_now=g0 / dt)
                                  for i in range(cfg.nscal)])
     else:
         theta_new = state.theta
@@ -419,17 +450,22 @@ def step(
 
 def advance(mesh: SemMesh, cfg: FlowConfig, state: FlowState, nsteps: int, ub=None, tb=None,
             ramp: bool = True, pc_e=None, vdiag=None, tdiags=None, dt=None, psolves=None,
-            vsolves=None, stats=None) -> FlowState:
+            vsolves=None, stats=None, trajectory: list | None = None) -> FlowState:
     """Integrate nsteps with a BDF1/2/3 startup ramp (self-starting: the map
     needs no externally supplied history); ramp=False continues at the
     scheme's order from the state's history.
 
-    dt: replaces cfg.dt for this run. vdiag/tdiags: the Jacobi diagonals
+    dt: replaces cfg.dt for this run; a 0-d tensor that carries a
+    forward-mode tangent (dt = T / nsteps for a periodic orbit's period T)
+    carries it through every step, while the solvers are those of its
+    primal value. vdiag/tdiags: the Jacobi diagonals
     (`bdf3_diags`); psolves and vsolves: the solvers at this dt
     (`pressure_solvers`, `velocity_solvers`, for at least
     `bdf_orders(cfg, nsteps, ramp)`). A caller that advances repeatedly at
     one dt builds them once; they are built here when None. stats: as in
-    `step`, one entry per step and solve."""
+    `step`, one entry per step and solve. trajectory: optional list; the
+    state before every step and the step's BDF order are appended, as
+    (state, order) pairs (the orbit a linearization about it needs)."""
     if dt is not None:
         cfg = dataclasses.replace(cfg, dt=float(dt))
     orders = bdf_orders(cfg, nsteps, ramp)
@@ -443,8 +479,10 @@ def advance(mesh: SemMesh, cfg: FlowConfig, state: FlowState, nsteps: int, ub=No
     for k in range(nsteps):
         order = k + 1 if k < n_ramp else tmax
         vsolve, tsolves = vsolves[order]
+        if trajectory is not None:
+            trajectory.append((state, order))
         state = step(mesh, cfg, state, order, psolves[order], vsolve, tsolves, ub=ub, tb=tb,
-                     stats=stats)
+                     stats=stats, dt=dt if is_dual(dt) else None)
     return state
 
 

@@ -18,7 +18,9 @@ is the port's counterpart: the solve is a symmetric linear map of its
 right-hand side, and under autograd its backward runs the same built-once
 `PCG`, at the same tolerance and with the same graph, on the cotangent; in
 forward mode its jvp does the same on the tangent (`jax.jvp` through
-`custom_linear_solve`). The iterations are re-solved, never differentiated.
+`custom_linear_solve`), with the operator's own tangent when it depends on
+a scalar that carries one (dt). The iterations are re-solved, never
+differentiated.
 """
 
 from __future__ import annotations
@@ -128,7 +130,8 @@ def pcg_info(
 
 
 def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
-                 project: Callable | None = None, log: Callable | None = None) -> torch.Tensor:
+                 project: Callable | None = None, log: Callable | None = None,
+                 param: torch.Tensor | None = None, dop: Callable | None = None) -> torch.Tensor:
     """x = cg.solve(b) as a linear map of b, for a Euclidean-symmetric
     `cg.op`. The backward solves the cotangent with the same CG: the
     reference's `custom_linear_solve(..., symmetric=True)`. project: a
@@ -138,7 +141,13 @@ def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
     the cotangent before it solves. In forward mode the tangent is solved
     the same way (its right-hand side lies in the range as b does). log(k)
     receives each solve's iteration count, the backward's and the tangent's
-    too."""
+    too.
+
+    param, dop: the operator's own tangent, for an operator built at a
+    fixed value of a scalar s (h2 = rho g0 / dt): param carries s' as
+    `tensor.tangent_part` makes it, and dop(x) applies dA/ds. The tangent
+    is then A^-1 (b' - s' dA/ds x), one solve, as `jax.jvp` through
+    `custom_linear_solve` gives it."""
 
     def solve(rhs):
         x, k, _ = cg.solve(rhs, tol=tol, maxiter=maxiter)
@@ -146,7 +155,9 @@ def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
             log(k)
         return x
 
-    return linear(solve, b, None if project is None else (lambda g: solve(project(g))))
+    shift = None if dop is None else (lambda _b, x: -dop(x))
+    return linear(solve, b, None if project is None else (lambda g: solve(project(g))),
+                  param=param, shift=shift)
 
 
 def local_diagonal(op_local: Callable, shape, dtype, ndim_pts: int, device=None) -> torch.Tensor:

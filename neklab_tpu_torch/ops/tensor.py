@@ -17,7 +17,10 @@ insides: the port's counterpart of `custom_linear_solve(...,
 symmetric=True)` and of transposing a symmetric primitive in JAX. In
 forward mode (`torch.autograd.forward_ad`) the tangent of a linear map is
 the map applied to the tangent, so its `jvp` is the map itself: the
-counterpart of `jax.jvp` through those primitives.
+counterpart of `jax.jvp` through those primitives. A map built at a fixed
+value of a scalar (a solve at fixed dt) also takes that scalar's tangent
+(`param`), as `jax.jvp` through `custom_linear_solve` differentiates the
+operator's closed-over dt.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch.autograd.forward_ad as fwAD
 
 __all__ = [
     "apply_r", "apply_s", "apply_t", "grad_rst", "grad_rst_t", "interp_nd", "interp_nd_t", "tsum",
-    "linear",
+    "linear", "is_dual", "tangent_part",
 ]
 
 
@@ -40,33 +43,60 @@ class _Linear(torch.autograd.Function):
     outside both modes of autograd; backward and jvp are the only rules."""
 
     @staticmethod
-    def forward(ctx, x, op, transpose):
-        ctx.op, ctx.transpose = op, transpose
-        return op(x)
+    def forward(ctx, x, op, transpose, param, shift):
+        ctx.op, ctx.transpose, ctx.shift = op, transpose, shift
+        y = op(x)
+        if param is not None:
+            ctx.x, ctx.y = x, y
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.transpose(g), None, None
+        return ctx.transpose(g), None, None, None, None
 
     @staticmethod
-    def jvp(ctx, t, _op, _transpose):
+    def jvp(ctx, t, _op, _transpose, t_param, _shift):
+        if t_param is not None:
+            t = t + t_param * ctx.shift(ctx.x, ctx.y)
         return ctx.op(t)
 
 
-def _is_dual(x: torch.Tensor) -> bool:
-    """x carries a forward-mode tangent (inside a `forward_ad.dual_level`)."""
-    return fwAD.unpack_dual(x).tangent is not None
+def is_dual(x) -> bool:
+    """x is a tensor that carries a forward-mode tangent (inside a
+    `forward_ad.dual_level`)."""
+    return isinstance(x, torch.Tensor) and fwAD.unpack_dual(x).tangent is not None
 
 
-def linear(op: Callable, x: torch.Tensor, transpose: Callable | None = None) -> torch.Tensor:
+def tangent_part(x) -> torch.Tensor | None:
+    """A 0-d tensor that is exactly zero and carries x's forward-mode
+    tangent, or None when x carries none (a float, a plain tensor). Added
+    to a parameter of a map, it leaves the primal bit for bit as it was."""
+    if not is_dual(x):
+        return None
+    tangent = fwAD.unpack_dual(x).tangent
+    return fwAD.make_dual(torch.zeros_like(tangent), tangent)
+
+
+def linear(op: Callable, x: torch.Tensor, transpose: Callable | None = None,
+           param: torch.Tensor | None = None, shift: Callable | None = None) -> torch.Tensor:
     """op(x) for a linear op. When x takes part in autograd, the backward
     applies `transpose` (Euclidean; op itself when None, for a symmetric op)
     to the cotangent, so a reverse pass reuses op as it is (its kernel, its
     built-once CG) instead of differentiating its insides. When x carries a
     forward-mode tangent, the tangent's image is op applied to it, by the
-    same reuse. Otherwise this is op(x)."""
-    if (x.requires_grad and torch.is_grad_enabled()) or _is_dual(x):
-        return _Linear.apply(x, op, op if transpose is None else transpose)
+    same reuse. Otherwise this is op(x).
+
+    param, shift: the map's own dependence on a scalar. op was built at a
+    fixed value of it; param is a 0-d tensor whose tangent is the scalar's
+    (`tangent_part`), and shift(x, y) the direction, in op's input, that
+    moves y = op(x) as the scalar does: the tangent of y is then
+    op(x' + param' shift(x, y)). For a solve y = A^-1 x that is
+    -(dA/ds) y; for a map linear in the scalar c, y = c A1 x, it is x / c.
+    param takes no cotangent: a backward treats the scalar as a constant."""
+    if not is_dual(param):
+        param = None
+    if (x.requires_grad and torch.is_grad_enabled()) or is_dual(x) or param is not None:
+        return _Linear.apply(x, op, op if transpose is None else transpose, param, shift)
     return op(x)
 
 

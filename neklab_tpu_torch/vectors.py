@@ -3,7 +3,8 @@
 The stability-analysis vector is {u: [ndim, pts..., nel], theta: [nscal,
 pts..., nel]}; pressure and time-integration history are not part of it
 (the propagator is self-starting). dot: the mass-weighted inner product over
-u and theta. rand: Gaussian noise made C0-conforming and BC-compliant.
+u and theta. rand: Gaussian noise made C0-conforming and BC-compliant. The
+extended space adds the period T of a periodic orbit: {u, theta, T}.
 """
 
 from __future__ import annotations
@@ -52,3 +53,34 @@ def flow_vector_space(mesh: SemMesh, nscal: int) -> VectorSpace:
         return project_c0(mesh, {"u": u, "theta": theta})
 
     return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn)
+
+
+def ext_flow_vector(mesh: SemMesh, nscal: int, u=None, theta=None, T=0.0) -> dict:
+    """{u, theta, T}: a flow vector extended by a period T (a 0-d tensor on
+    the mesh's device), the unknowns of a periodic orbit."""
+    v = flow_vector(mesh, nscal, u, theta)
+    v["T"] = torch.as_tensor(T, dtype=mesh.dtype, device=mesh.device).clone()
+    return v
+
+
+def ext_flow_vector_space(mesh: SemMesh, nscal: int) -> VectorSpace:
+    """flow_vector_space's dot plus T * T; rand also draws a standard normal T."""
+    base = flow_vector_space(mesh, nscal)
+
+    def dot_fn(x, y):
+        return base.dot_fn(x, y) + x["T"] * y["T"]
+
+    def rand_fn(seed: int):
+        v = base.rand_fn(seed)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(int(seed) + 1)
+        v["T"] = torch.randn((), generator=gen, dtype=mesh.dtype, device=mesh.device)
+        return v
+
+    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn)
+
+
+def get_size(mesh: SemMesh, nscal: int, extended: bool = False) -> int:
+    """Active DOF count: (ndim + nscal) fields of bm1's size, + 1 for T."""
+    n = (mesh.ndim + nscal) * int(mesh.bm1.numel())
+    return n + 1 if extended else n

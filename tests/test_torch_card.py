@@ -3,8 +3,8 @@ plain torch twin, its run counter in device memory, the CG iterations
 captured as CUDA graphs against the same CG on CPU tensors, the backward
 passes of the exact discrete adjoint (the kernel's, the solves', the
 recorded propagator's) and the forward mode of the kernel and the solves
-against the same on CPU tensors, and one nonlinear step with an inflow
-lift.
+(with a dt tangent too) against the same on CPU tensors, one nonlinear step
+with an inflow lift, and one forced linearized step.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -60,9 +60,11 @@ def random_args(n, nel, lead, dtype, device, seed=0):
 
 
 # (n, nel, lead): the velocity CG and the probe of the main path, a ragged
-# last tile (nel = 15, 121), the smallest and largest n, batches of 1 and 81
+# last tile (nel = 15, 121), the smallest and largest n, batches of 1 and 81,
+# and the velocity CGs of the resolvent channel and the periodic-orbit annulus
 EDGE_CASES = [(9, 120, (2,)), (9, 120, (81,)), (6, 15, (2,)), (9, 121, (1,)),
-              (2, 15, (2,)), (12, 121, (2,)), (12, 15, (81,)), (8, 1024, ())]
+              (2, 15, (2,)), (12, 121, (2,)), (12, 15, (81,)), (8, 1024, ()),
+              (7, 48, (2,)), (6, 126, (2,))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -362,3 +364,77 @@ def test_step_matches_cpu(card):
     for k in ("u", "p"):
         assert rel(getattr(out[card], k), getattr(out["cpu"], k)) <= 1e-10, k
     assert float((out["cpu"].u[0] * (1 - m.vmask[0]) * (m.x[0] < -1)).max()) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# forward mode with a dt tangent, and a forced linearized step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["velocity", "pressure"])
+def test_solve_dt_jvp_matches_cpu(card, which):
+    """A solve whose dt carries a forward-mode tangent (the period of a
+    periodic orbit): the operator's own tangent joins the right-hand side's
+    and the warm start's (and, for the velocity, the Dirichlet lift's) in
+    one re-solve with the built-once CG; card against CPU, f64."""
+    import torch.autograd.forward_ad as fwAD
+
+    rng = np.random.default_rng(14)
+    out, stats, data = {}, {}, None
+    for dev in (card, "cpu"):
+        m = box_mesh((8, 4), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        if which == "velocity":
+            solve = ns.make_helmholtz_solver(m, H1, H2, m.vmask,
+                                             ns.helmholtz_diag(m, H1, H2, m.vmask), 1e-10, 500)
+            shape = (2,) + tuple(m.bm1.shape)
+        else:
+            cfg = ns.FlowConfig(viscosity=H1, dt=DT, ptol=1e-10, pmaxit=500)
+            solve = ns.make_pressure_solver(m, cfg, DT / (11 / 6), pc=build_e_preconditioner(m))
+            shape = tuple(m.bm2.shape)
+        if data is None:
+            data = [rng.standard_normal(shape) for _ in range(4)]
+            if which == "pressure":  # in E's range, as div_weak makes it
+                data = [d - d.mean() for d in data]
+        r, tr, x0, bc = (torch.as_tensor(d, device=dev) for d in data)
+        stats[dev] = {}
+        with fwAD.dual_level():
+            ddt = torch.tensor(1.0, dtype=torch.float64, device=dev)
+            dt = fwAD.make_dual(torch.tensor(DT, dtype=torch.float64, device=dev), ddt)
+            rhs = fwAD.make_dual(r, tr)
+            if which == "velocity":
+                res = solve(rhs, bc, stats=stats[dev], x0=sem.dsavg(m, x0),
+                            h2_now=(11 / 6) / dt)
+            else:
+                res = solve(rhs, x0=x0, stats=stats[dev], dt_over_g0_now=dt / (11 / 6))
+            out[dev] = fwAD.unpack_dual(res)
+    counts = next(iter(stats["cpu"].values()))
+    assert stats[card] == stats["cpu"] and len(counts) == 2 and min(counts) > 3
+    assert rel(out[card].primal, out["cpu"].primal) <= 1e-10
+    assert rel(out[card].tangent, out["cpu"].tangent) <= 1e-10
+
+
+def test_forced_linearized_step_matches_cpu(card):
+    """One BDF3 linearized step with a body force (the resolvent's forcing
+    hook, OTD's rank coupling) on the card and on the CPU, f64."""
+    from neklab_tpu_torch.models.linearized import LinConfig, pert_initial, step_lin
+
+    rng = np.random.default_rng(15)
+    out, data = {}, None
+    for dev in (card, "cpu"):
+        m = box_mesh((8, 6), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        fc = ns.FlowConfig(viscosity=1 / 60, dt=0.02, vtol=1e-12, ptol=1e-12)
+        y = m.x[1]
+        if data is None:
+            shape = (2,) + tuple(m.bm1.shape)
+            data = [rng.standard_normal(s) for s in (shape, shape, (2,) + shape)]
+        u, f, ulag = (torch.as_tensor(d, device=dev) for d in data)
+        st = pert_initial(m, LinConfig(flow=fc), m.vmask * sem.dsavg(m, u))
+        st = dataclasses.replace(st, ulag=m.vmask * sem.dsavg(m, ulag))
+        vdiag, tdiags = ns.bdf3_diags(m, fc)
+        (vsolve, tsolves), = ns.velocity_solvers(m, fc, [3], vdiag, tdiags).values()
+        (psolve,) = ns.pressure_solvers(m, fc, [3], pc_e=build_e_preconditioner(m)).values()
+        th = torch.zeros((0,) + tuple(m.bm1.shape), dtype=torch.float64, device=dev)
+        out[dev] = step_lin(m, LinConfig(flow=fc), st, torch.stack([1 - y**2, 0 * y]), th, 3,
+                            psolve, vsolve, tsolves, force=m.vmask * f)
+    for k in ("u", "p"):
+        assert rel(getattr(out[card], k), getattr(out["cpu"], k)) <= 1e-10, k

@@ -2,7 +2,7 @@
 (neklab_tpu_torch), f32.
 
     python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint,
-                                                 cyl50-nonlinear]
+                                                 cyl50-nonlinear,otd500-otd]
                                         [--nsteps 20]
 
 Cases: `re7500` is the Poiseuille Re=7500 `medium` propagator of
@@ -14,8 +14,13 @@ ExponentialPropagator's adjoint tolerances, 10x tighter); its "step" is one
 step of the backward pass. `cyl50-nonlinear` is the nonlinear step of the
 cylinder wake at Re=50 (`medium`, phase 8: 160 elements at order 6, dt =
 5e-3, the free stream as the inflow lift), continuing from 200 steps of the
-example's smooth start. For each, from a B-normalized state (the sustained
-protocol; the nonlinear case from its own state):
+example's smooth start. `otd500-otd` is the OTD run of chip_smoke.py's
+phase 11 (r = 2 modes on the frozen Poiseuille base at Re = 500, a 4 x 6
+box at order 6, dt from CFL 0.4, vtol = ptol = 3e-7): `otd_chunk` in
+chunks of 5 steps, as `otd_analysis` runs it at the reference's cadences,
+each chunk ending in an orthonormalization and Lr read on the host; its
+"step" advances both modes. For each, from a B-normalized state (the
+sustained protocol; the nonlinear and OTD cases from their own states):
   * host ms/step of three unprofiled windows of `nsteps` steps;
   * velocity (Helmholtz) and pressure (E) CG iterations per step, as the
     solvers report them (`propagate(..., stats=)`, `advance(..., stats=)`);
@@ -109,6 +114,47 @@ def nonlinear_case(dev, nsteps):
     return mesh, fc.dt, run, state
 
 
+def otd_case(dev, nsteps):
+    """-> (mesh, dt, run, state) for the OTD step: run(state, stats) evolves
+    (base, modes) nsteps in chunks of 5 steps with solvers built once."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, pert_initial
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.otd import (OtdOpts, _stack, orthonormalize_states, otd_chunk,
+                                      otd_solvers)
+    from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.utils.timestep import cfl_dt
+
+    mesh = box_mesh((4, 6), ((0.0, 2 * np.pi), (-1.0, 1.0)), CHANNEL, order=6,
+                    dtype=torch.float32, device=dev)
+    y = mesh.x[1]
+    base_u = torch.stack([1 - y**2, 0 * y])
+    fc = ns.FlowConfig(viscosity=1 / 500, dt=cfl_dt(mesh, base_u, cfl=0.4), vtol=3e-7,
+                       ptol=3e-7)
+    cfg, opts = LinConfig(flow=fc), OtdOpts(r=2, printstep=5, orthostep=10)
+    solvers = otd_solvers(mesh, cfg, build_e_preconditioner(mesh))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    modes = [mesh.vmask * sem.dsavg(mesh, torch.randn((2,) + tuple(mesh.bm1.shape),
+                                                      generator=gen, dtype=mesh.dtype,
+                                                      device=dev)) for _ in range(2)]
+    perts = orthonormalize_states(mesh, _stack([pert_initial(mesh, cfg, m) for m in modes]))
+    state = (ns.initial_state(mesh, fc, u=base_u), perts)
+
+    def run(st, stats=None, ramp=False):
+        base, perts = st
+        for _ in range(nsteps // 5):
+            base, perts, lr = otd_chunk(mesh, cfg, opts, base, perts, 5, ramp=ramp,
+                                        ortho_every=opts.orthostep, solvers=solvers,
+                                        stats=stats)
+            lr.cpu()
+            ramp = False
+        return base, perts
+
+    return mesh, fc.dt, run, run(state, ramp=True)
+
+
 def profile_case(name, dev, nsteps):
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,6 +166,8 @@ def profile_case(name, dev, nsteps):
     tape_bytes = None
     if kind == "nonlinear":
         mesh, dt, run, u = nonlinear_case(dev, nsteps)
+    elif kind == "otd":
+        mesh, dt, run, u = otd_case(dev, nsteps)
     else:
         mesh, cfg, cfg_adj, base_u, pc, vdiag, psolves, vsolves = build_case(base, dev)
         dt = cfg.flow.dt
@@ -170,7 +218,7 @@ def profile_case(name, dev, nsteps):
         "case": name, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": dt,
         "nsteps": nsteps, "tape_bytes": tape_bytes,
         "ms_per_step": walls,
-        "cg_iters_per_step": {k: sum(v) / len(v) for k, v in stats.items()},
+        "cg_iters_per_step": {k: sum(v) / (3 * nsteps) for k, v in stats.items()},
         "helmholtz2d_runs_per_step": runs,
         "host_launch_calls_per_step": sum(host_launches.values()) / nsteps,
         "host_launch_calls_by_name_per_step": {k: v / nsteps for k, v in host_launches.items()},
@@ -184,8 +232,8 @@ def profile_case(name, dev, nsteps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cases",
-                    default="re7500,box2d,re7500-adjoint,box2d-adjoint,cyl50-nonlinear")
+    ap.add_argument("--cases", default="re7500,box2d,re7500-adjoint,box2d-adjoint,"
+                                       "cyl50-nonlinear,otd500-otd")
     ap.add_argument("--nsteps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
