@@ -15,11 +15,15 @@ newton_fixed_point_iteration -> ExponentialPropagator ->
 linear_stability_analysis_fixed_point), the wavenumber-projected
 eigensolve (ProjectedPropagator), a resolvent sweep (Resolvent), a
 periodic orbit with its Floquet multipliers (PeriodicOrbitSystem ->
-newton_fixed_point_iteration -> MonodromyOperator -> eigs) and OTD modes
-(otd_analysis). Phases:
+newton_fixed_point_iteration -> MonodromyOperator -> eigs), OTD modes
+(otd_analysis), backward-facing-step transient growth (bfs_mesh ->
+build_e_preconditioner -> advance -> ExponentialPropagator ->
+transient_growth_analysis_fixed_point) and the pressure preconditioner's
+aggregated tier with the matrix-free E at 21,609 elements. Phases:
 
   0 device   the card, its power limit, TF32 off
-  1 build    nvcc -> neklab_tpu_torch/build/
+  1 build    nvcc -> neklab_tpu_torch/build/; g++ -> the native colouring
+             and RCB library beside it
   2 kernel   helmholtz2d vs helmholtz2d_plain at every later phase's shapes
              and the tiling's edges; device times beside the bound
   3 parity   matvec and rmatvec on the card (kernel, graphed CGs, the
@@ -33,6 +37,10 @@ newton_fixed_point_iteration -> MonodromyOperator -> eigs) and OTD modes
              `propagate_forced`, the resolvent, the projected propagator,
              the periodic orbit's Jacobian (dT != 0), dPhi/dT, the
              monodromy, `otd_chunk`; the kernel's counter vs the CG counts
+  3u parity  meshes from a `.re2` and a `.box` file written to .scratch/ and
+             the BFS `coarse` mesh, card vs CPU, f64: `propagate` and its
+             adjoint with OAS + Q1, block Jacobi + constants and the RCB
+             tier (the last two through the matrix-free E); the counter
   4 oracle   Poiseuille Re=500 direct and adjoint eigenvalues vs
              Orr-Sommerfeld, f64; the projected alpha = 1 eigensolve
   5 box2d    box2d 131k propagator, f32: ms/step sustained and floor, and
@@ -53,16 +61,22 @@ newton_fixed_point_iteration -> MonodromyOperator -> eigs) and OTD modes
              Floquet multipliers
   11 otd     examples/poiseuille_otd.py's Re=500 run, f32, 17,670 steps:
              eig(Lr) vs the analytic shear rates
+  12 bfs     examples/bfs_transient_growth.py `medium`, f32: 2500 spin-up
+             steps, the Lanczos SVD at tau = 9; sigma_1 > 1, the triplet
+             identity, power iterations on M*M
+  13 box21k  the 21,609-element walled box at order 3: f64, the default
+             preconditioner's RCB-aggregated tier and E-CG < 300 iterations
+             to 1e-6; f32, 20 linearized steps with `compress` off and on
 
-After phases 0-5 the main process starts one process per group of SIDE
-(this script with `--side oracle,cylinder`, ...) and runs MAIN_THEN beside
-them: the solves are bound by the host's launch rate, one core each, and
-leave the card idle most of the time. `--only a,b,...` runs the named
-phases one after another in this process (to time them alone). The
+After phases 0-5 (with 3n, 3r, 3u) the main process starts one process per
+group of SIDE (this script with `--side oracle,resolvent`, ...) and runs
+MAIN_THEN beside them: the solves are bound by the host's launch rate, one
+core each, and leave the card idle most of the time. `--only a,b,...` runs
+the named phases one after another in this process (to time them alone). The
 script uses one card: it makes only the first visible card visible to
 itself. Every phase asserts; any failure raises and the exit code is
-non-zero. The last line on success is {"ok": true, "device": {...}}; the
-line before it lists the kernels. Without a CUDA card it fails at once.
+non-zero. The last line on success is {"ok": true, "device": {...}}; the line
+before it lists the kernels. Without a CUDA card it fails at once.
 
 The kernel counts its own runs in device memory (`helmholtz_kernel.launches`),
 so the velocity and pressure CGs, whose iterations replay CUDA graphs, are
@@ -239,6 +253,15 @@ def kernel_phase(dev):
             slice_meshes[key, dtype] = m, nu_dt
             cases += [(f"{key}/{name}/{lead}", mesh_args(m, lead, nu_dt))
                       for lead in ((2,), probe)]
+    # this slice's meshes: the backward-facing step (phase 12), the
+    # 21,609-element box (phase 13), both f32, and phase 3u's f64 meshes
+    bfs = bfs_medium(dev)
+    big = box21k(dev, torch.float32)
+    cases += [(f"bfs/{lead}", mesh_args(bfs, lead, (1 / 500, 1e-2))) for lead in ((2,), (49,))]
+    cases += [(f"box21k/{lead}", mesh_args(big, lead, (1e-3, 5e-4))) for lead in ((2,), (16,))]
+    for name, m in file_meshes(dev).items():
+        cases += [(f"parity_u_{name}/{lead}", mesh_args(m, lead, (1 / 50, 1e-2)))
+                  for lead in ((2,), (36,))]
     box2d64 = channel(dev, torch.float64, (64, 16), 7)
     for m in (box2d, box2d64):
         cases += [(f"box2d_131k/{str(m.dtype)[6:]}/{lead}", mesh_args(m, lead))
@@ -271,6 +294,7 @@ def kernel_phase(dev):
     # resolvent sweep (f32) and the periodic orbit (f64)
     timed = [(m, None) for m in (re7500, cyl, box2d)]
     timed += [slice_meshes["resolvent", torch.float32], slice_meshes["upo", torch.float64]]
+    timed += [(bfs, (1 / 500, 1e-2)), (big, (1e-3, 5e-4))]
     for m, nu_dt in timed:
         args = mesh_args(m, (2,), nu_dt)
         key = f"{list(args[0].shape)} {SHORT[m.dtype]}"
@@ -1254,12 +1278,370 @@ def otd_phase(dev, endtime: float = 200.0) -> dict:
     return {"otd": launches}
 
 
+# ---------------------------------------------------------------------------
+# meshes from files, the backward-facing step, the 21k-element box
+# ---------------------------------------------------------------------------
+
+
+def write_re2(path, xc, yc, curves=(), bcs=()):
+    """A 2-D #v002 Nek5000 `.re2` file by its public layout (the header,
+    the endian tag, per element [group, x(4 corners), y(4 corners)], then
+    the curve block and one BC block per field of 8-word records: element,
+    side (1-based), 5 parameters, the characters)."""
+    import struct
+
+    nel = len(xc)
+
+    def records(items):
+        out = [np.array([len(items)], "<f8").tobytes()]
+        for iel, iside, params, chars in items:
+            w = np.zeros(8, "<f8")
+            w[0], w[1] = iel + 1, iside + 1
+            w[2:2 + len(params)] = params
+            b = bytearray(w.tobytes())
+            b[56:] = chars.encode().ljust(8)
+            out.append(bytes(b))
+        return b"".join(out)
+
+    with open(path, "wb") as f:
+        f.write(f"#v002 {nel:9d} 2 {nel:9d} chip_smoke".ljust(80).encode())
+        f.write(struct.pack("<f", 6.54321))
+        f.write(np.concatenate([np.ones((nel, 1)), xc, yc], axis=1).astype("<f8").tobytes())
+        f.write(records(list(curves)))
+        for field in bcs:
+            f.write(records(list(field)))
+
+
+BOX_FILE = """\
+2
+1
+Box
+-4 3
+0.0 2.0 1.3
+0.0 0.4 1.1 2.0
+P  ,P  ,W  ,W  ,
+"""
+
+
+def file_meshes(dev, dtype=torch.float64) -> dict:
+    """Phase 3u's meshes: a `.re2` written to .scratch/ (4 x 3 elements on
+    [0, 4] x [0, 3], 'v' inflow on the left, 'O' outflow on the right, 'W'
+    below and above the first column, 'P' pairs joining the bottom and top
+    of the others, one 'C' arc on the outflow side), a genbox `.box`
+    (graded in x, explicit edges in y, periodic in x, walled: a pure-Neumann
+    pressure), and the backward-facing step of the `coarse` preset, all at
+    order 5."""
+    from neklab_tpu_torch.mesh.bfs import bfs_mesh
+    from neklab_tpu_torch.mesh.boxfile import mesh_from_box
+    from neklab_tpu_torch.mesh.re2 import mesh_from_re2
+
+    outdir = os.path.join(ROOT, ".scratch")
+    os.makedirs(outdir, exist_ok=True)
+    nx, ny = 4, 3
+    i, j = (a.reshape(-1).astype(float) for a in np.meshgrid(np.arange(nx), np.arange(ny)))
+    xc, yc = np.stack([i, i + 1, i + 1, i], 1), np.stack([j, j, j + 1, j + 1], 1)
+    vel = []
+    for e in range(nx * ny):
+        c, r = e % nx, e // nx
+        vel.append((e, 3, (), "v" if c == 0 else "E"))
+        vel.append((e, 1, (), "O" if c == nx - 1 else "E"))
+        if r == 0:
+            vel.append((e, 0, (), "W") if c == 0 else (e, 0, (e + nx * (ny - 1) + 1, 3), "P"))
+        if r == ny - 1:
+            vel.append((e, 2, (), "W") if c == 0 else (e, 2, (e - nx * (ny - 1) + 1, 1), "P"))
+    re2_path = os.path.join(outdir, "smoke.re2")
+    write_re2(re2_path, xc, yc, curves=[(nx - 1, 1, (3.0,), "C")], bcs=[vel])
+    box_path = os.path.join(outdir, "smoke.box")
+    with open(box_path, "w") as f:
+        f.write(BOX_FILE)
+    return {"re2": mesh_from_re2(re2_path, order=5, dtype=dtype, cache=False, device=dev),
+            "box": mesh_from_box(box_path, order=5, dtype=dtype, device=dev),
+            "bfs": bfs_mesh(li=2, lo=10, nel_li=2, nel_lo=8, nel_y_in=2, nel_y_step=2,
+                            order=5, dtype=dtype, device=dev)}
+
+
+def parity_u_phase(dev):
+    """Phase 3u: the linearized propagator's matvec (`propagate`, 10 steps)
+    and its exact adjoint's rmatvec on the card against the CPU, f64, on
+    each of `file_meshes` with each preconditioner: OAS + Q1 with the exact
+    neighbour blocks (the default), block Jacobi + constants, and the
+    RCB-aggregated tier (forced by a coarse_max_dense of a quarter of the
+    elements); the last two run the matrix-free E in the pressure CG.
+    Card and CPU each build their own mesh and preconditioner; the inner
+    solves run to 1e-14, so both converge well below the bound. Asserts
+    <= 1e-12 relative and, on the card, the kernel's device counter against
+    the CG counts: per matvec one run per velocity CG iteration and one per
+    solve (the zero lift), per rmatvec one per transposed iteration."""
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, make_adjoint_propagator, propagate
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+
+    t0 = time.time()
+    meshes = {d: file_meshes(d) for d in (dev, "cpu")}
+    # the inner solves run to 1e-14: block Jacobi's E-CG converges slowly,
+    # so at 1e-12 the card's and the CPU's solves stop a few iterations
+    # apart and differ by their truncation, ~1e-12 (PERF.md section 6)
+    fc = ns.FlowConfig(viscosity=1 / 50, dt=1e-2, vtol=1e-14, ptol=1e-14, pmaxit=2000)
+    cfg, nsteps = LinConfig(flow=fc), 10
+    rng = np.random.default_rng(23)
+    errs, runs, implied, iters = {}, {}, {}, {}
+    for name, m_h in meshes["cpu"].items():
+        th = torch.zeros((0,) + tuple(m_h.bm1.shape), dtype=torch.float64)
+        u0, v0 = (m_h.vmask * sem.dsavg(m_h, torch.as_tensor(
+            rng.standard_normal((2,) + tuple(m_h.bm1.shape)))) for _ in range(2))
+        for pname, kw in (("oas_q1", {}),
+                          ("bj_const", dict(local="bj", coarse="const", exact_blocks=False)),
+                          ("rcb", dict(coarse_max_dense=max(2, m_h.nel // 4)))):
+            key = f"{name}/{pname}"
+            outs = {}
+            for d in (dev, "cpu"):
+                m = meshes[d][name]
+                x, y = m.x
+                base = torch.stack([1 + 0.2 * torch.sin(x) * torch.cos(y),
+                                    0.2 * torch.cos(x) * torch.sin(y)]) * m.vmask
+                pc = build_e_preconditioner(m, fc.dt / (11 / 6), **kw)
+                assert (pc.eb_w is None) == (pname != "oas_q1"), key
+                assert (pc.agg_of_el is not None) == (pname == "rcb"), key
+                orders = ns.bdf_orders(fc, nsteps)
+                vdiag, _ = ns.bdf3_diags(m, fc)
+                psolves = ns.pressure_solvers(m, fc, orders, pc)
+                vsolves = ns.velocity_solvers(m, fc, orders, vdiag, None)
+                adj = make_adjoint_propagator(m, cfg, base, th.to(d), nsteps, vdiag=vdiag,
+                                              psolves=psolves, vsolves=vsolves)
+                st_mv, st_rmv = {}, {}
+                n0 = hk.launches(dev)
+                mv = propagate(m, cfg, base, th.to(d), u0.to(d), th.to(d), nsteps, vdiag=vdiag,
+                               psolves=psolves, vsolves=vsolves, stats=st_mv)[0]
+                n1 = hk.launches(dev)
+                rmv = adj(v0.to(d), th.to(d), stats=st_rmv)[0]
+                n2 = hk.launches(dev)
+                outs[d] = (mv, rmv)
+                if d == dev:
+                    runs[key] = (n1 - n0, n2 - n1)
+                    implied[key] = (sum(st_mv["helmholtz"]) + len(st_mv["helmholtz"]),
+                                    sum(st_rmv["helmholtz"]))
+                    iters[key] = {"matvec": {k: sum(v) for k, v in st_mv.items()},
+                                  "rmatvec": {k: sum(v) for k, v in st_rmv.items()}}
+            errs[key] = [rel(outs[dev][i].cpu(), outs["cpu"][i]) for i in range(2)]
+    phase("parity_u", t0, rel_err=errs, kernel_runs=runs, runs_implied_by_stats=implied,
+          cg_iters=iters, nel={k: m.nel for k, m in meshes["cpu"].items()}, nsteps=nsteps)
+    for key, value in runs.items():
+        assert value == implied[key], (key, value, implied[key])
+    for key, value in errs.items():
+        assert max(value) <= 1e-12, (key, value)
+
+
+def bfs_medium(dev, dtype=torch.float32):
+    """examples/bfs_transient_growth.py's `medium` mesh: 3 + 14 elements
+    along the channel, 2 + 2 across, order 6 (62 elements)."""
+    from neklab_tpu_torch.mesh.bfs import bfs_mesh
+
+    return bfs_mesh(li=3, lo=16, nel_li=3, nel_lo=14, nel_y_in=2, nel_y_step=2, order=6,
+                    dtype=dtype, device=dev)
+
+
+# the example asks for nsv 4 (PERF.md section 4); its Lanczos stops on
+# convergence, at m = 10 for nsv 2 (PERF.md section 6), well inside kdim 32
+BFS_KDIM, BFS_NSV = 32, 2
+
+
+def bfs_phase(dev, kdim: int = BFS_KDIM, nsv: int = BFS_NSV) -> dict:
+    """Phase 12: backward-facing-step transient growth, the `medium` preset
+    of examples/bfs_transient_growth.py at its full width, f32, through the
+    user entry points: `bfs_mesh` (62 elements, order 6) ->
+    `build_e_preconditioner` -> `advance` (Re 500, dt 1e-2, 2500 spin-up
+    steps from the parabolic inflow, the inflow as the lift) ->
+    `ExponentialPropagator` (tau = 9, 900 steps) ->
+    `transient_growth_analysis_fixed_point` (kdim, nsv, tol 1e-6). Asserts
+    tests/test_bfs.py's oracles: sigma_1 > 1 and sigma_1 >= sigma_2 > 0; the
+    triplet identity ||M v1 - sigma1 u1||_B <= 1e-3 sigma_1 (phase 7's f32
+    bound); sigma_1 within 5e-2 of 12 power iterations on M*M. Returns the
+    kernel runs of the spin-up and of the analysis."""
+    from neklab_tpu_torch.analysis import transient_growth_analysis_fixed_point
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.mesh.bfs import bfs_inflow
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig, advance, initial_state
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.vectors import flow_vector_space
+
+    t0 = time.time()
+    runs, seconds = {}, {}
+    mesh = bfs_medium(dev)
+    dt, nspin, tau = 1e-2, 2500, 9.0
+    fc = FlowConfig(viscosity=1 / 500, dt=dt, vtol=1e-6, ptol=1e-6)
+    ub = bfs_inflow(mesh)
+    hk.reset_launches(dev)
+    t1 = time.time()
+    spin_stats = {}
+    st = advance(mesh, fc, initial_state(mesh, fc, u=ub), nspin, ub=ub,
+                 pc_e=build_e_preconditioner(mesh, dt / (11 / 6)), stats=spin_stats)
+    runs["spin-up"] = hk.launches(dev)
+    seconds["spin-up"] = time.time() - t1
+    assert bool(torch.isfinite(st.u).all())
+
+    hk.reset_launches(dev)
+    t1 = time.time()
+    expA = ExponentialPropagator(mesh, LinConfig(flow=fc), st.u, tau=tau, dt=dt)
+    space = flow_vector_space(mesh, 0)
+    op = Counted(expA, dev)
+    res = transient_growth_analysis_fixed_point(op, space, kdim=kdim, nsv=nsv, tol=1e-6)
+    runs["analysis"] = hk.launches(dev)
+    seconds["analysis"] = time.time() - t1
+    sigma = [float(s) for s in res.sigma]
+    mv = expA.matvec(res.optimal_inputs[0])
+    triplet = space.norm({k: mv[k] - sigma[0] * res.optimal_outputs[0][k] for k in mv}) / sigma[0]
+    t1 = time.time()
+    v = space.rand(3)
+    for _ in range(12):
+        v, _ = space.normalize(v)
+        v = expA.rmatvec(expA.matvec(v))
+    power = float(np.sqrt(space.norm(v)))
+    seconds["power"] = time.time() - t1
+    med = {k: statistics.median(v) for k, v in op.seconds.items()}
+    phase("bfs", t0, nel=mesh.nel, order=mesh.basis.n - 1, nspin=nspin, tau=tau,
+          nsteps=expA.nsteps, kdim=kdim, nsv=nsv, sigma=sigma, gain=[s * s for s in sigma],
+          residuals=res.residuals.tolist(), n_matvec=res.n_matvec, triplet_rel=triplet,
+          power_sigma1=power, power_rel=abs(power - sigma[0]) / sigma[0],
+          spinup_ms_per_step=1e3 * seconds["spin-up"] / nspin,
+          spinup_cg_iters_per_step={k: statistics.mean(v) for k, v in spin_stats.items()},
+          s_per_matvec_median=med["matvec"], s_per_rmatvec_median=med["rmatvec"],
+          kernel_runs_per_matvec=statistics.median(op.runs["matvec"]),
+          kernel_runs_per_rmatvec=statistics.median(op.runs["rmatvec"]),
+          seconds=seconds, kernel_runs=runs)
+    assert sigma[0] > 1.0 and sigma[0] >= sigma[1] > 0, sigma
+    assert triplet <= 1e-3, triplet
+    assert abs(power - sigma[0]) < 5e-2 * sigma[0], (power, sigma[0])
+    return runs
+
+
+def box21k(dev, dtype):
+    """tests/test_precond.py:61-77's box: 147 x 147 walled elements on the
+    unit square, order 3 (21,609 elements)."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+
+    return box_mesh((147, 147), ((0.0, 1.0), (0.0, 1.0)), WALLED, order=3, dtype=dtype,
+                    device=dev)
+
+
+def box21k_base(mesh):
+    """A divergence-free flow that vanishes on the walls: the curl of the
+    stream function sin^2(pi x) sin^2(pi y)."""
+    x, y = mesh.x
+    return torch.stack([np.pi * torch.sin(np.pi * x) ** 2 * torch.sin(2 * np.pi * y),
+                        -np.pi * torch.sin(2 * np.pi * x) * torch.sin(np.pi * y) ** 2])
+
+
+def box21k_phase(dev) -> dict:
+    """Phase 13: the pressure preconditioner's aggregated tier and the
+    matrix-free E at the reference's own size (tests/test_precond.py:61-77,
+    slow there): the 21,609-element walled box at order 3. In f64 the
+    default preconditioner takes the RCB-aggregated constant coarse space
+    (asserts agg_of_el set, ec_inv at most 4096 square, no exact blocks) and
+    the E-CG (the test's protocol: a random mean-free right-hand side, the
+    preconditioner's output made mean-free) reaches 1e-6 in fewer than 300
+    iterations; the build's seconds and whether the native library ran are
+    printed. Then in f32, 20 linearized steps about `box21k_base` with the
+    sustained and floor protocol of bench.py:73-106 (the state B-normalized
+    before every call), with `compress` off and on, in turns: ms/step, E
+    and velocity CG iterations per step, kernel runs per step. Returns the
+    kernel runs of the f32 steps."""
+    from neklab_tpu_torch import native
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models import stokes
+    from neklab_tpu_torch.models.linearized import LinConfig, propagate
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.models.solvers import pcg_info
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.utils.timestep import cfl_dt
+
+    t0 = time.time()
+    mesh = box21k(dev, torch.float64)
+    t1 = time.time()
+    pc = build_e_preconditioner(mesh, 1e-2)
+    torch.cuda.synchronize()
+    build_s = time.time() - t1
+    assert pc.agg_of_el is not None and pc.ec_inv.shape[0] <= 4096 and pc.eb_w is None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rhs = torch.randn(tuple(mesh.bm2.shape), generator=gen, dtype=torch.float64, device=dev)
+    rhs = rhs - rhs.mean()
+    t1 = time.time()
+    _, k, rr = pcg_info(lambda q: stokes.e_op(mesh, q, 1e-2), rhs,
+                        precond=lambda r: pc.apply(r) - pc.apply(r).mean(), tol=1e-6,
+                        maxiter=4000)
+    cg_s = time.time() - t1
+    assert k < 300, k
+
+    mesh = box21k(dev, torch.float32)
+    base = box21k_base(mesh)
+    dt = cfl_dt(mesh, base, cfl=0.5)
+    nsteps = 20
+    fc = ns.FlowConfig(viscosity=1e-3, dt=dt, vtol=1e-5, ptol=1e-5, pmaxit=300)
+    cfg = LinConfig(flow=fc)
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=torch.float32, device=dev)
+    orders = ns.bdf_orders(fc, nsteps)
+    vdiag, _ = ns.bdf3_diags(mesh, fc)
+    vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag, None)
+    props, build_f32_s = {}, {}
+    for compress in (False, True):
+        t1 = time.time()
+        pc32 = build_e_preconditioner(mesh, compress=compress)
+        torch.cuda.synchronize()
+        build_f32_s[str(compress)] = time.time() - t1
+        props[compress] = (pc32, ns.pressure_solvers(mesh, fc, orders, pc32))
+
+    def bnorm(u):
+        return u / sem.mass_dot(mesh, u, u).sqrt().clamp_min(torch.finfo(u.dtype).tiny)
+
+    def timed(compress, state, scale, reps=3):
+        """-> (s per call, kernel runs per step, mean CG iterations per step, state)."""
+        psolves = props[compress][1]
+        run = lambda u, stats=None: propagate(mesh, cfg, base, th, u, th, nsteps, vdiag=vdiag,
+                                              psolves=psolves, vsolves=vsolves, stats=stats)[0]
+        state = scale * bnorm(run(state))  # warm-up
+        stats = {}
+        n0 = hk.launches(dev)
+        t2 = time.time()
+        for _ in range(reps):
+            state = scale * bnorm(run(state, stats))
+        torch.cuda.synchronize()
+        seconds = (time.time() - t2) / reps
+        return (seconds, (hk.launches(dev) - n0) / (reps * nsteps),
+                {k: statistics.mean(v) for k, v in stats.items()}, state)
+
+    gen.manual_seed(42)
+    fresh = lambda: bnorm(mesh.vmask * sem.dsavg(mesh, torch.randn(
+        (2,) + tuple(mesh.bm1.shape), generator=gen, dtype=torch.float32, device=dev)))
+    hk.reset_launches(dev)
+    rows = {False: [], True: []}
+    for compress in (False, True, True, False):  # in turns
+        s_sus, runs_step, iters, state = timed(compress, fresh(), 1.0)
+        assert bool(torch.isfinite(state).all())
+        s_floor, _, iters_floor, _ = timed(compress, 1e-8 * state, 1e-8)
+        rows[compress].append({"ms_per_step": 1e3 * s_sus / nsteps,
+                               "ms_per_step_floor": 1e3 * s_floor / nsteps,
+                               "cg_iters_per_step": iters,
+                               "cg_iters_per_step_floor": iters_floor,
+                               "kernel_runs_per_step": runs_step})
+    launches = hk.launches(dev)
+    phase("box21k", t0, nel=mesh.nel, order=mesh.basis.n - 1, native=native.available(),
+          pc_build_s_f64=build_s, ec_inv_shape=list(pc.ec_inv.shape), e_cg_iters=k,
+          e_cg_rr=float(rr), e_cg_s=cg_s, pc_build_s_f32=build_f32_s, dt=dt, nsteps=nsteps,
+          compress_false=rows[False], compress_true=rows[True], kernel_runs=launches)
+    return {"21k box steps (phase 13)": launches}
+
+
 # the schedule: the main process runs MAIN_FIRST, then starts one process
 # per group of SIDE (`--side a,b`: those phases one after another) and runs
 # MAIN_THEN beside them
-MAIN_FIRST = ("kernel", "parity", "nonlinear", "parity_r", "box2d")
-SIDE = ("oracle,cylinder", "otd,resolvent", "upo")
-MAIN_THEN = ("re7500", "growth")
+MAIN_FIRST = ("kernel", "parity", "nonlinear", "parity_r", "parity_u", "box2d")
+SIDE = ("oracle,resolvent", "otd,cylinder", "upo", "bfs")
+MAIN_THEN = ("re7500", "growth", "box21k")
 
 
 def run_phase(name: str, dev, state: dict):
@@ -1273,6 +1655,8 @@ def run_phase(name: str, dev, state: dict):
         nonlinear_phase(dev)
     elif name == "parity_r":
         parity_r_phase(dev)
+    elif name == "parity_u":
+        parity_u_phase(dev)
     elif name == "box2d":
         box2d_phase(dev)
     elif name == "re7500":
@@ -1297,6 +1681,12 @@ def run_phase(name: str, dev, state: dict):
                 "Floquet eigensolve (phase 10)": runs["floquet"]}
     elif name == "otd":
         return {"OTD (phase 11)": otd_phase(dev)["otd"]}
+    elif name == "bfs":
+        runs = bfs_phase(dev)
+        return {"BFS spin-up (phase 12)": runs["spin-up"],
+                "BFS transient growth (phase 12)": runs["analysis"]}
+    elif name == "box21k":
+        return box21k_phase(dev)
     else:
         raise SystemExit(f"chip_smoke: no phase {name!r}")
     return None
@@ -1309,7 +1699,11 @@ def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    # every preconditioner is built, none loaded from an earlier run's cache
+    # (the side processes inherit this)
+    os.environ["NEKLAB_PRECOND_CACHE"] = "0"
     import neklab_tpu_torch  # noqa: F401  (sets the TF32 switches)
+    from neklab_tpu_torch import native
     from neklab_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -1327,6 +1721,7 @@ def main() -> None:
     if args[:1] == ["--only"]:
         # the named phases alone, one after another in this process
         _build.build()
+        assert native.available()
         state: dict = {}
         for name in args[1].split(","):
             print(f"launches {name} " + json.dumps(run_phase(name, dev, state)), flush=True)
@@ -1345,7 +1740,11 @@ def main() -> None:
     # ---- 1: build ----
     t0 = time.time()
     _build.build()
-    phase("build", t0, seconds=_build.last_build["seconds"],
+    nvcc_s = _build.last_build["seconds"]
+    t1 = time.time()
+    assert native.available(), "g++ did not build the native mesh library"
+    phase("build", t0, seconds=nvcc_s, native_gxx_s=time.time() - t1,
+          native_library=os.path.basename(native.library_path()),
           ptxas=ptxas_report(_build.last_build["log"]))
 
     state: dict = {}

@@ -5,17 +5,18 @@ The modal-stability eigensolves, direct and adjoint (mesh -> SEM operators
 the base flows they start from (the nonlinear BDF3/EXT3 stepper and
 Newton-Krylov over a fixed-point system), resolvent analysis, the
 wavenumber-projected propagator, periodic orbits with their Floquet
-multipliers, and OTD mode evolution on torch tensors, with the 2-D
-local Helmholtz apply as a hand-written CUDA kernel for Hopper
+multipliers, and OTD mode evolution on torch tensors, on meshes the
+package builds (box, annulus, backward-facing step) or reads (Nek5000
+`.re2`, genbox `.box`), with the pressure preconditioner at any mesh size
+and the 2-D local Helmholtz apply as a hand-written CUDA kernel for Hopper
 (`ops/helmholtz_kernel.py`, `csrc/helmholtz2d.cu`). The JAX package
 `neklab_tpu` is the reference the port is tested against; this package
 imports torch, numpy and scipy, never jax.
 
 Field layout is the reference's element-last `[..., s, r, nel]` at every
 public function. The device is chosen once, by `box_mesh(..., device=)` (or
-`annulus_mesh`, `build_mesh`, `mesh_from_arrays`), and every later tensor
-follows the mesh's
-device. It defaults to the current CUDA card; without a card the mesh
+`annulus_mesh`, `bfs_mesh`, `mesh_from_box`, `mesh_from_re2`, `build_mesh`,
+`mesh_from_arrays`), and every later tensor follows the mesh's device. It defaults to the current CUDA card; without a card the mesh
 builders raise unless the caller passes `device="cpu"`.
 """
 

@@ -64,6 +64,10 @@ class SemMesh:
     # int64 [npts*nel, maxmult]: flat positions of every copy of the DOF at
     # each flat position, padded with npts*nel (a zero slot), for `sem.dssum`
     dss_copies: torch.Tensor
+    # int64 [nel]: the element permutation of a builder that reordered the
+    # elements (RCB, `mesh_from_re2(partition=)`): arr_here =
+    # arr_file_order[..., eperm]. None is the identity.
+    eperm: torch.Tensor | None = None
 
     @property
     def npts(self) -> int:
@@ -131,13 +135,15 @@ def build_mesh(
     bc: tuple = (),
     dtype=torch.float64,
     device=None,
+    eperm: np.ndarray | None = None,
 ) -> SemMesh:
     """Finalize host-side geometry + connectivity into a device SemMesh.
 
     Inputs use the builder's ELEMENT-FIRST layout ([.., nel, pts..]); the
     stored tensors are ELEMENT-LAST ([.., pts.., nel]). Same numpy
-    arithmetic as the reference builder (structured path). device: None is
-    the current CUDA card (`resolve_device`)."""
+    arithmetic as the reference builder. device: None is the current CUDA
+    card (`resolve_device`). eperm: the builder's element permutation, if
+    it reordered the elements (`SemMesh.eperm`)."""
     device = resolve_device(device)
     nel = geom.x.shape[1]
     gidx = np.asarray(gidx, dtype=np.int64)
@@ -183,6 +189,8 @@ def build_mesh(
         tmask=el_last(tmask, 0), vmask_hat=vmask_hat, tmask_hat=tmask_hat,
         volume=np.asarray(geom.bm1.sum()),
     )
+    if eperm is not None:
+        arrays["eperm"] = np.asarray(eperm, np.int64)
     meta = dict(n=basis.n, nd=basis.nd, ndim=ndim, nel=nel, nglob=nglob, bc=bc)
     return mesh_from_arrays(arrays, meta, dtype=dtype, device=device)
 
@@ -191,7 +199,8 @@ def mesh_from_arrays(arrays: dict, meta: dict, dtype=torch.float64, device=None)
     """Build a SemMesh from numpy arrays of the reference mesh's fields.
 
     arrays: {name: np.ndarray} for every name in MESH_FIELDS, in the
-    reference's element-last layouts (e.g. `np.asarray(jax_mesh.bm1)`).
+    reference's element-last layouts (e.g. `np.asarray(jax_mesh.bm1)`), and
+    optionally "eperm".
     meta: {"n", "nd", "ndim", "nel", "nglob", "bc"} — the reference's static
     metadata (basis.n, basis.nd, ndim, nel, nglob, bc). This carries a mesh
     the port cannot build itself yet (e.g. the annulus) across unchanged.
@@ -215,4 +224,18 @@ def mesh_from_arrays(arrays: dict, meta: dict, dtype=torch.float64, device=None)
         **tensors,
         **_basis_tensors(basis, dtype, device),
         dss_copies=torch.as_tensor(_dss_copies(np.asarray(arrays["gidx"])), device=device),
+        eperm=(None if arrays.get("eperm") is None
+               else torch.as_tensor(np.asarray(arrays["eperm"], np.int64), device=device)),
     )
+
+
+def from_file_order(mesh: SemMesh, arr):
+    """Map an element-LAST array in FILE (.re2/.fld) element order onto this
+    mesh's element order (the identity unless the mesh was built with RCB
+    reordering). A tensor stays on its device; anything else becomes a
+    tensor on the mesh's device."""
+    if not isinstance(arr, torch.Tensor):
+        arr = torch.as_tensor(np.asarray(arr), device=mesh.device)
+    if mesh.eperm is None:
+        return arr
+    return arr.index_select(-1, mesh.eperm.to(arr.device))

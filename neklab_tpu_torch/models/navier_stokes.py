@@ -219,25 +219,28 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
 
     For enclosed flows (pure-Neumann pressure) the constant nullspace is
     projected out of the operator, the preconditioner and the RHS, and out
-    of the CG's residual at every update (`PCG(project=)`). With a
-    preconditioner, E is applied through its exact neighbor-block form, and
-    the CG runs on element-first copies of the fields ([nel, np2], the
-    layout of `pc.e_apply_ef` and `pc.apply_ef`). The CG iteration is built
-    once per solver and, on the card, captured as a CUDA graph (`PCG`); the
-    CG runs through `linear_solve`, so a reverse pass re-solves with it. E
-    is symmetric, and its neighbor-block apply is one too under autograd
-    (`tensor.linear`), so the warm start's backward is E again and not
-    an atomic scatter-add."""
+    of the CG's residual at every update (`PCG(project=)`). When the
+    preconditioner carries E's exact neighbour blocks (`pc.eb_w`), E is
+    applied through them and the CG runs on element-first copies of the
+    fields ([nel, np2], the layout of `pc.e_apply_ef` and `pc.apply_ef`);
+    otherwise E is the matrix-free `stokes.e_op` on element-last fields,
+    with `pc.apply` (when given) as the preconditioner. The CG iteration is
+    built once per solver and, on the card, captured as a CUDA graph
+    (`PCG`); the CG runs through `linear_solve`, so a reverse pass re-solves
+    with it. E is symmetric, and either apply is its own backward and
+    forward mode under autograd (`tensor.linear`), so the warm start's
+    backward is E again and not an atomic scatter-add."""
     pure = mesh.p_fixed
     proj = stokes.project_onto_range if pure else (lambda q: q)
+    blocks = pc is not None and pc.eb_w is not None
 
-    if pc is not None:
+    if blocks:
         e_apply = lambda q: linear(lambda v: pc.e_apply_ef(v, dt_over_g0), q)
         precond = lambda r: proj(pc.apply_ef(proj(r)))
         to_ef = lambda q: q.reshape(-1, mesh.nel).T.contiguous()
     else:
-        e_apply = lambda q: stokes.e_op(mesh, q, dt_over_g0)
-        precond = None
+        e_apply = lambda q: linear(lambda v: stokes.e_op(mesh, v, dt_over_g0), q)
+        precond = None if pc is None else (lambda r: proj(pc.apply(proj(r))))
         to_ef = lambda q: q
 
     def op(dp):
@@ -271,7 +274,7 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
             dp = dp * (1.0 - s / dt_over_g0)
         if x0 is not None:
             dp = dp + x0
-        if pc is not None:
+        if blocks:
             dp = dp.T.reshape(shape).contiguous()
         if pure:
             dp = stokes.remove_pressure_mean(mesh, dp)

@@ -13,11 +13,13 @@ nonlinear integration with dt traced. Here dPhi/dT is forward mode through
 carries the tangent 1/nsteps into every step (its solves carry their
 operators' tangents, `models/navier_stokes.py`); (dPhi/dX) dx, once per
 matvec, is the linearized stepper about the orbit recorded once per
-Jacobian, which is that derivative to the solvers' tolerance without
-forward mode's primal pass and dual ops. matvec = (dPhi/dX) dx - dx +
-dT dPhi/dT is exact by linearity. rmatvec is the B-adjoint by a backward through
-`advance`, recorded once per Jacobian; T's cotangent is dropped, as in the
-reference.
+Jacobian, with the explicit terms' derivative about each recorded state
+(the linearized convection and the tangents of the FlowConfig's
+forcing_fn and source_fn), which is that derivative to the solvers'
+tolerance without forward mode's primal pass and dual ops. matvec =
+(dPhi/dX) dx - dx + dT dPhi/dT is exact by linearity. rmatvec is the
+B-adjoint by a backward through `advance`, recorded once per Jacobian; T's
+cotangent is dropped, as in the reference.
 
 Every CG is a `PCG` built per (dt, order), so the system keeps one solver
 set per (T, nsteps), the T of each Newton iterate, and one E
@@ -35,7 +37,8 @@ import torch.autograd.forward_ad as fwAD
 from ..krylov.linop import LinearOperator, NonlinearSystem
 from ..mesh.core import SemMesh
 from ..models import navier_stokes as ns
-from ..models.linearized import LinConfig, b_adjoint, pert_initial, step_lin
+from ..models.linearized import (LinConfig, _explicit_lin_map, b_adjoint, pert_initial,
+                                 step_lin)
 from ..models.precond import build_e_preconditioner
 from ..ops import sem
 from ..utils.timestep import cfl_dt, horizon_steps
@@ -120,6 +123,34 @@ def _mass_dot(mesh: SemMesh, a: dict, b: dict) -> torch.Tensor:
     return torch.sum(a["u"] * b["u"] * mesh.bm1) + torch.sum(a["theta"] * b["theta"] * mesh.bm1)
 
 
+def _step_tangent_map(mesh: SemMesh, cfg: LinConfig, conv_cache, t, u, theta):
+    """The derivative about (u, theta) at time t of the nonlinear step's
+    explicit terms (`navier_stokes._explicit_terms`), (du, dth) ->
+    (n_u, n_t) in local weak form: the linearized convection (`conv_cache`)
+    plus the tangents of the FlowConfig's forcing_fn and source_fn, by
+    forward mode through those callables alone (`torch.func.jvp`). The
+    LinConfig's lin_forcing_fn and lin_source_fn do not enter: the map
+    being differentiated is the nonlinear step, as in the reference's
+    `jax.jvp` through `advance`."""
+    fc = cfg.flow
+    conv = _explicit_lin_map(
+        mesh, dataclasses.replace(cfg, lin_forcing_fn=None, lin_source_fn=None), conv_cache,
+        tuple(theta.shape))
+    hooks = [(fn, k) for fn, k in ((fc.forcing_fn, 0), (fc.source_fn if fc.nscal else None, 1))
+             if fn is not None]
+    if not hooks:
+        return conv
+
+    def emap(du, dth):
+        terms = list(conv(du, dth))
+        for fn, k in hooks:
+            _, tangent = torch.func.jvp(lambda a, b: fn(mesh, t, a, b), (u, theta), (du, dth))
+            terms[k] = terms[k] + mesh.bm1 * tangent
+        return tuple(terms)
+
+    return emap
+
+
 class _Tangent:
     """The derivatives of Phi about (X, T): its linearization in X, applied by
     linearized steps about the recorded orbit; dPhi/dT by forward mode; the
@@ -131,8 +162,8 @@ class _Tangent:
         self._tape = None
 
     def orbit(self) -> list:
-        """[(u, theta, BDF order, linearization cache)] of the state before
-        every step of Phi from X, recorded at the first call."""
+        """[(u, theta, time, BDF order, linearization cache)] of the state
+        before every step of Phi from X, recorded at the first call."""
         if self._orbit is None:
             s, x = self.s, self.x
             d = s._derive(x["T"])
@@ -142,29 +173,28 @@ class _Tangent:
                        s.nsteps, ub=s.ub, tb=s.tb, psolves=d.psolves, vsolves=d.vsolves,
                        trajectory=trajectory)
             base_theta = lambda st: st.theta if fc.nscal else None
-            self._orbit = [(st.u, st.theta, order,
+            self._orbit = [(st.u, st.theta, st.time, order,
                             sem.lin_convect_cache(s.mesh, st.u, base_theta(st)))
                            for st, order in trajectory]
         return self._orbit
 
     def apply(self, du, dth, stats=None):
         """(dPhi/dX)(du, dth): the linearized step (`step_lin`, the system's
-        solvers) about the orbit's state at every step. It is the derivative
-        of `advance`'s steps to the solvers' tolerance (the explicit
-        convection's derivative is the linearized convection about that
-        state, the warm starts only shift the solves); coupling forces and
-        sources enter through the LinConfig's lin_forcing_fn and
-        lin_source_fn, as in `propagate`. The reference takes it by
-        `jax.jvp` through the whole integration, which here would carry the
-        primal along in every matvec, with every elementwise op twice or
-        more (PERF.md)."""
+        solvers) about the orbit's state at every step, with the derivative
+        of that step's explicit terms (`_step_tangent_map`). It is the
+        derivative of `advance`'s steps to the solvers' tolerance (the warm
+        starts only shift the solves). The reference takes it by `jax.jvp`
+        through the whole integration, which here would carry the primal
+        along in every matvec, with every elementwise op twice or more
+        (PERF.md)."""
         s = self.s
         d = s._derive(self.x["T"])
         pert = pert_initial(s.mesh, d.cfg, du, dth)
-        for u, theta, order, cache in self.orbit():
+        for u, theta, t, order, cache in self.orbit():
             vsolve, tsolves = d.vsolves[order]
             pert = step_lin(s.mesh, d.cfg, pert, u, theta, order, d.psolves[order], vsolve,
-                            tsolves, conv_cache=cache, stats=stats)
+                            tsolves, stats=stats,
+                            emap=_step_tangent_map(s.mesh, d.cfg, cache, t, u, theta))
         return pert.u, pert.theta
 
     def period_jvp(self, stats=None):

@@ -438,3 +438,93 @@ def test_forced_linearized_step_matches_cpu(card):
                             psolve, vsolve, tsolves, force=m.vmask * f)
     for k in ("u", "p"):
         assert rel(getattr(out[card], k), getattr(out["cpu"], k)) <= 1e-10, k
+
+
+# ---------------------------------------------------------------------------
+# the native library, the kernel at the new meshes' shapes, and the pressure
+# preconditioner at any mesh size with the matrix-free E
+# ---------------------------------------------------------------------------
+
+BFS_SMALL = dict(li=2, lo=8, nel_li=2, nel_lo=6, nel_y_in=2, nel_y_step=2, order=4)
+
+
+def test_native_library_builds(card):
+    """g++ builds the colouring and RCB library at first use (the card's
+    machine measures the native path)."""
+    import os
+
+    from neklab_tpu_torch import native
+
+    assert native.available() and os.path.exists(native.library_path())
+    counts = np.bincount(native.rcb_partition(np.random.default_rng(0).random((1000, 2)), 16))
+    assert len(counts) == 16 and counts.max() - counts.min() <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, nel, lead", [(4, 21609, (2,)), (4, 21609, (16,)), (7, 62, (2,)),
+                                          (7, 62, (49,))])
+def test_helmholtz2d_at_the_new_meshes_shapes(card, n, nel, lead, dtype):
+    """The 21,609-element box at order 3 (the largest nel launched) and the
+    backward-facing step at order 6, velocity CG and probe shapes."""
+    args = random_args(n, nel, lead, dtype, card, seed=3)
+    assert rel(helmholtz_kernel.helmholtz2d(*args),
+               helmholtz_kernel.helmholtz2d_plain(*args)) <= TOL[dtype]
+
+
+PRECONDITIONERS = {"bj_const": dict(local="bj", coarse="const"),
+                   "rcb": dict(coarse_max_dense=8), "oas_q1": dict()}
+
+
+@pytest.mark.parametrize("case", sorted(PRECONDITIONERS))
+def test_preconditioner_built_on_the_card_matches_cpu(card, case, monkeypatch):
+    """Each preconditioner built on the card (probing there) and on the CPU
+    from the same backward-facing step, f64: the stored arrays and `apply`
+    to 1e-11 (the probes differ in summation order, and the host inverts
+    them: rounding times the blocks' condition)."""
+    from neklab_tpu_torch.mesh.bfs import bfs_mesh
+
+    monkeypatch.setenv("NEKLAB_PRECOND_CACHE", "0")  # two independent builds
+    meshes = {dev: bfs_mesh(**BFS_SMALL, device=dev) for dev in (card, "cpu")}
+    pcs = {dev: build_e_preconditioner(m, 1e-2, **PRECONDITIONERS[case])
+           for dev, m in meshes.items()}
+    for f in dataclasses.fields(pcs["cpu"]):
+        a, b = getattr(pcs[card], f.name), getattr(pcs["cpu"], f.name)
+        assert (a is None) == (b is None), f.name
+        if b is not None:
+            assert a.device.type == "cuda" and rel(a.cpu().double(), b.double()) <= 1e-11, f.name
+    r = np.random.default_rng(2).standard_normal(tuple(meshes["cpu"].bm2.shape))
+    out = {dev: pcs[dev].apply(torch.as_tensor(r, device=dev)) for dev in (card, "cpu")}
+    assert rel(out[card], out["cpu"]) <= 1e-11
+
+
+@pytest.mark.parametrize("where", ["walled", "bfs"])
+def test_graphed_matrix_free_pressure_cg_matches_cpu(card, where, monkeypatch):
+    """The pressure CG with block Jacobi and constants and no exact blocks
+    runs the matrix-free E, captured as a CUDA graph on the card: the solve
+    (warm-started) and its backward against the same on CPU tensors, f64,
+    with a pure-Neumann pressure (walled box) and with an outflow."""
+    from neklab_tpu_torch.mesh.bfs import bfs_mesh
+
+    monkeypatch.setenv("NEKLAB_PRECOND_CACHE", "0")
+    cfg = ns.FlowConfig(viscosity=H1, dt=DT, ptol=1e-10, pmaxit=500)
+    rng = np.random.default_rng(12)
+    out, grads, stats, data = {}, {}, {}, None
+    for dev in (card, "cpu"):
+        if where == "walled":
+            m = box_mesh((10, 8), ((0, 1), (0, 1)), WALLED_BC, order=4, device=dev)
+        else:
+            m = bfs_mesh(**BFS_SMALL, device=dev)
+        pc = build_e_preconditioner(m, local="bj", coarse="const", exact_blocks=False)
+        assert pc.eb_w is None
+        solve = ns.make_pressure_solver(m, cfg, DT / (11 / 6), pc=pc)
+        if data is None:
+            data = [rng.standard_normal(tuple(m.bm2.shape)) for _ in range(3)]
+        r, x0, g = (torch.as_tensor(d, device=dev) for d in data)
+        r.requires_grad_(True)
+        stats[dev] = {}
+        out[dev] = solve(r, x0=x0, stats=stats[dev])
+        (grads[dev],) = torch.autograd.grad(out[dev], r, g)
+    counts = stats["cpu"]["pressure"]
+    assert stats[card] == stats["cpu"] and len(counts) == 2 and min(counts) > 3
+    assert rel(out[card], out["cpu"].detach()) <= 1e-10
+    assert rel(grads[card], grads["cpu"]) <= 1e-10

@@ -217,3 +217,73 @@ def test_solve_dt_tangent_matches_difference(which):
     fd = (run(dt0 + eps) - run(dt0 - eps)) / (2 * eps)
     assert float(fd.abs().max()) > 1e-3
     assert absdiff(tangent - fixed, fd) <= 1e-6 * float(fd.abs().max())
+
+
+# -- a scalar and a theta-dependent force ------------------------------------
+# nscal 1, conductivity 0.05, forcing (2 nu, 0.5 theta): the nonlinear step's
+# force depends on the state, so (dPhi/dX) dx carries its tangent. The port's
+# linearized steps take it by forward mode through the callable alone; the
+# reference's jax.jvp through the integration, and both packages' rmatvec a
+# backward through it. Tolerances as above.
+
+
+def _jforcing_theta(m, t_, u, th):
+    return jnp.stack([jnp.full_like(th[0], 2.0 * NU), 0.5 * th[0]])
+
+
+def _forcing_theta(m, t_, u, th):
+    f = torch.zeros((2,) + tuple(m.bm1.shape), dtype=m.dtype, device=m.device)
+    f[0] = 2.0 * NU
+    f[1] = 0.5 * th[0]
+    return f
+
+
+@pytest.fixture(scope="module")
+def upo_scalar():
+    jmesh, mesh = jbox_mesh(**MESH), box_mesh(**MESH, device="cpu")
+    flow = dict(FLOW, nscal=1, conductivity=(0.05,), ttol=1e-12)
+    jsys = JUPO(jmesh, JLinConfig(flow=JFlowConfig(**flow, forcing_fn=_jforcing_theta)),
+                t_guess=T0, nsteps=NSTEPS)
+    sys_ = PeriodicOrbitSystem(mesh, LinConfig(flow=FlowConfig(**flow, forcing_fn=_forcing_theta)),
+                               t_guess=T0, nsteps=NSTEPS)
+    rng = np.random.default_rng(37)
+    y = np.asarray(jmesh.x[1])
+
+    def conforming(a, mask):
+        return np.asarray(mask * jsem.dsavg(jmesh, jnp.asarray(a)))
+
+    shape = (2,) + tuple(jmesh.bm1.shape)
+    tshape = (1,) + tuple(jmesh.bm1.shape)
+    vm, tm = jmesh.vmask, jmesh.tmask
+    u = conforming(np.stack([0.9 * (1 - y**2), 0.02 * np.sin(np.pi * y)])
+                   + 0.05 * rng.standard_normal(shape), vm)
+    th = conforming(0.5 * np.cos(np.pi * y / 2)[None] + 0.1 * rng.standard_normal(tshape), tm)
+    vec = lambda T: {"u": conforming(rng.standard_normal(shape), vm),
+                     "theta": conforming(rng.standard_normal(tshape), tm), "T": T}
+    return jsys, sys_, {"u": u, "theta": th, "T": T0}, vec(0.7), vec(-0.4)
+
+
+def test_bordered_jacobian_with_theta_forcing_matches_reference(upo_scalar):
+    jsys, sys_, x, dx, v = upo_scalar
+    jjac, jac = jsys.jacobian(jvec(x)), sys_.jacobian(tvec(x))
+    for name, arg in (("matvec", dx), ("rmatvec", v)):
+        ref, out = getattr(jjac, name)(jvec(arg)), getattr(jac, name)(tvec(arg))
+        assert np.abs(np.asarray(ref["theta"])).max() > 1e-2
+        assert absdiff(out["u"], ref["u"]) <= 1e-9, name
+        assert absdiff(out["theta"], ref["theta"]) <= 1e-9, name
+        assert abs(float(out["T"]) - float(ref["T"])) <= 1e-9 * abs(float(ref["T"])), name
+    space = ext_flow_vector_space(sys_.mesh, 1)
+    lhs = space.dot(jac.matvec(tvec(dx)), tvec(v))
+    rhs = space.dot(tvec(dx), jac.rmatvec(tvec(v)))
+    assert abs(lhs - rhs) <= 1e-8 * abs(lhs), (lhs, rhs)
+
+
+def test_monodromy_with_theta_forcing_matches_reference(upo_scalar):
+    jsys, sys_, x, dx, v = upo_scalar
+    jmono, mono = JMonodromy(jsys, jvec(x)), MonodromyOperator(sys_, tvec(x))
+    strip = lambda a: {k: a[k] for k in ("u", "theta")}
+    for name, arg in (("matvec", dx), ("rmatvec", v)):
+        ref, out = getattr(jmono, name)(jvec(strip(arg))), getattr(mono, name)(tvec(strip(arg)))
+        assert np.abs(np.asarray(ref["u"])).max() > 1e-2
+        assert absdiff(out["u"], ref["u"]) <= 1e-9, name
+        assert absdiff(out["theta"], ref["theta"]) <= 1e-9, name

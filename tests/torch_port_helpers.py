@@ -54,3 +54,42 @@ def carry_mesh(jmesh, dtype=torch.float64, device="cpu"):
     meta = dict(n=jmesh.basis.n, nd=jmesh.basis.nd, ndim=jmesh.ndim, nel=jmesh.nel,
                 nglob=jmesh.nglob, bc=jmesh.bc)
     return mesh_from_arrays(arrays, meta, dtype=dtype, device=device)
+
+
+def write_re2(path, xc, yc, curves=(), bcs=(), version=2):
+    """Write a 2-D Nek5000 `.re2` file by its public layout: an 80-byte
+    ASCII header `#v00K nelgt ndim nelgv`, the float32 endian tag 6.54321,
+    then real*8 words (real*4 for #v001): per element [group, x(4 corners),
+    y(4 corners)] (corners counterclockwise from (-1, -1)); the curve block
+    [ncurve, then 8-word records (element, side, 5 parameters, curve char)];
+    one BC block per field [nbc, then 8-word records (element, side, 5
+    parameters, BC chars)]. Elements and sides are 1-based in the file and
+    0-based in `curves` and `bcs` ((element, side, params, chars) tuples);
+    a periodic record's first two parameters are the partner's element and
+    side, 1-based."""
+    import struct
+
+    xc, yc = np.asarray(xc, float), np.asarray(yc, float)
+    nel = xc.shape[0]
+    wd = 8 if version == 2 else 4
+    rdt = np.dtype(f"<f{wd}")
+
+    def records(items):
+        out = [np.array([len(items)], rdt).tobytes()]
+        for iel, iside, params, chars in items:
+            w = np.zeros(8, rdt)
+            w[0], w[1] = iel + 1, iside + 1
+            w[2:2 + len(params)] = params
+            b = bytearray(w.tobytes())
+            b[7 * wd:] = chars.encode().ljust(wd)
+            out.append(bytes(b))
+        return b"".join(out)
+
+    with open(path, "wb") as f:
+        f.write(f"#v00{version} {nel:9d} 2 {nel:9d} written by a test".ljust(80).encode())
+        f.write(struct.pack("<f", 6.54321))
+        el = np.concatenate([np.ones((nel, 1)), xc, yc], axis=1)
+        f.write(el.astype(rdt).tobytes())
+        f.write(records(list(curves)))
+        for field in bcs:
+            f.write(records(list(field)))
