@@ -18,8 +18,12 @@ periodic orbit with its Floquet multipliers (PeriodicOrbitSystem ->
 newton_fixed_point_iteration -> MonodromyOperator -> eigs), OTD modes
 (otd_analysis), backward-facing-step transient growth (bfs_mesh ->
 build_e_preconditioner -> advance -> ExponentialPropagator ->
-transient_growth_analysis_fixed_point) and the pressure preconditioner's
-aggregated tier with the matrix-free E at 21,609 elements. Phases:
+transient_growth_analysis_fixed_point), the pressure preconditioner's
+aggregated tier with the matrix-free E at 21,609 elements, and the 3-D
+path: the box3d duct at 1,119,744 velocity DOF and a 3-D channel
+eigensolve (box_mesh -> ExponentialPropagator -> flow_vector_space ->
+linear_stability_analysis_fixed_point, with its mode files and timers).
+Phases:
 
   0 device   the card, its power limit, TF32 off
   1 build    nvcc -> neklab_tpu_torch/build/; g++ -> the native colouring
@@ -41,6 +45,11 @@ aggregated tier with the matrix-free E at 21,609 elements. Phases:
              the BFS `coarse` mesh, card vs CPU, f64: `propagate` and its
              adjoint with OAS + Q1, block Jacobi + constants and the RCB
              tier (the last two through the matrix-free E); the counter
+  3d parity  the 3-D path card vs CPU, f64, on a (2, 2, 2) channel and a
+             walled (3, 2, 2) box at order 4: `helmholtz_local`, 10 forced
+             nonlinear steps, `propagate` and its adjoint with block
+             Jacobi + constants through the matrix-free E, the B-adjoint
+             identity; the 2-D kernel's counter does not move
   4 oracle   Poiseuille Re=500 direct and adjoint eigenvalues vs
              Orr-Sommerfeld, f64; the projected alpha = 1 eigensolve
   5 box2d    box2d 131k propagator, f32: ms/step sustained and floor, and
@@ -67,12 +76,23 @@ aggregated tier with the matrix-free E at 21,609 elements. Phases:
   13 box21k  the 21,609-element walled box at order 3: f64, the default
              preconditioner's RCB-aggregated tier and E-CG < 300 iterations
              to 1e-6; f32, 20 linearized steps with `compress` off and on
+  14 box3d   bench.py:312-345's 12^3-element duct at order 5, f32: ms/step
+             sustained and floor, the adjoint's ms/step and tape bytes, CG
+             iterations, the preconditioner's and the Jacobi diagonal's
+             build, peak memory; the CGs inside maxit, the B-adjoint identity
+  15 channel3d  plane Poiseuille at Re = 500 extruded spanwise, (4, 5, 2) at
+             order 6, f64: the two leading eigenvalues vs the analytic
+             shear modes -nu (pi/2)^2 (double, reported once) and -nu pi^2,
+             the driver's files
 
-After phases 0-5 (with 3n, 3r, 3u) the main process starts one process per
-group of SIDE (this script with `--side oracle,resolvent`, ...) and runs
-MAIN_THEN beside them: the solves are bound by the host's launch rate, one
-core each, and leave the card idle most of the time. `--only a,b,...` runs
-the named phases one after another in this process (to time them alone). The
+After phases 0-2 and 5, which time the card alone, the main process starts
+one process per group of SIDE (this script with `--side oracle,resolvent`,
+...) and runs MAIN_THEN beside them, the card-vs-CPU phases 3-3d first:
+most solves are bound by the host's launch rate, one core each, and leave
+the card idle most of the time. `--only a,b,...` runs
+the named phases one after another in this process (to time them alone);
+`--eigs-depth channel3d|re7500 kdim:tol:maxiter ...` times phase 15's or
+phase 6's eigensolve at other Krylov dimensions (`eigs_depth`). The
 script uses one card: it makes only the first visible card visible to
 itself. Every phase asserts; any failure raises and the exit code is
 non-zero. The last line on success is {"ok": true, "device": {...}}; the line
@@ -663,6 +683,12 @@ def parity_r_phase(dev):
         assert value <= 1e-9, (key, value)
 
 
+# the adjoint eigensolve's residual tolerance, cut from 1e-5 to make room
+# for phase 15: the phase asserts its eigenvalues to 1e-4, and they read
+# 1.5e-7 off at 1e-5 (PERF.md section 6)
+ADJ_TOL_RE500 = 1e-4
+
+
 def oracle_phase(dev) -> dict:
     """Phase 4: Poiseuille Re=500 eigenvalues on the card, f64 (nev =
     NEV_RE500), against the Orr-Sommerfeld/shear-mode oracle, then the
@@ -695,7 +721,8 @@ def oracle_phase(dev) -> dict:
     assert max(dists) < 2e-4, dists
     assert lead_err < 1e-5, lead_err
     adj = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0), kdim=30,
-                                                nev=2, tol=1e-5, maxiter=12, adjoint=True)
+                                                nev=2, tol=ADJ_TOL_RE500, maxiter=12,
+                                                adjoint=True)
     adj_err = [float(abs(adj.eigvals[0] - (-(1 / re) * (np.pi / 2) ** 2))),
                float(abs(adj.eigvals[1] - (-(1 / re) * np.pi**2)))]
     phase("oracle", t0, eigvals=[[v.real, v.imag] for v in res.eigvals],
@@ -819,6 +846,9 @@ def box2d_phase(dev):
 # cylinder; the phases assert the TS mode, the two shear modes and the
 # shedding mode
 NEV_RE7500, NEV_RE500, NEV_CYLINDER = 2, 2, 2
+# phase 6's residual tolerance: the example's 1e-6 cut to the 1e-5 that the
+# phase asserts of the TS mode, to make room for phase 15
+TOL_RE7500 = 1e-5
 
 
 def main_path_phase(dev) -> tuple[int, complex]:
@@ -836,7 +866,7 @@ def main_path_phase(dev) -> tuple[int, complex]:
     hk.reset_launches(dev)
     mesh, expA = poiseuille(dev, torch.float32, (12, 10), 8, re, 1e-7)
     res = linear_stability_analysis_fixed_point(expA, flow_vector_space(mesh, 0), kdim=96,
-                                                nev=NEV_RE7500, tol=1e-6, maxiter=10)
+                                                nev=NEV_RE7500, tol=TOL_RE7500, maxiter=10)
     launches = hk.launches(dev)
     assert launches > 0
     assert np.all(np.isfinite(res.eigvals))
@@ -883,6 +913,12 @@ class Counted:
         return self._call("rmatvec", x)
 
 
+# phase 7's Lanczos iterations, cut from 32 to make room for phase 15: the
+# triplet identity holds by the bidiagonalization's construction at any
+# depth, and sigma_1 exceeds |mu_1| within a few iterations
+GROWTH_KDIM = 16
+
+
 def growth_phase(dev, mu1: complex) -> tuple[int, int]:
     """Phase 7: transient growth of Poiseuille Re=7500 `medium`, f32 (the
     phase-6 configuration), through the user entry points: every Lanczos
@@ -902,7 +938,7 @@ def growth_phase(dev, mu1: complex) -> tuple[int, int]:
     mesh, expA = poiseuille(dev, torch.float32, (12, 10), 8, 7500.0, 1e-7)
     space = flow_vector_space(mesh, 0)
     op = Counted(expA, dev)
-    res = transient_growth_analysis_fixed_point(op, space, kdim=32, nsv=2)
+    res = transient_growth_analysis_fixed_point(op, space, kdim=GROWTH_KDIM, nsv=2)
     launches = hk.launches(dev)
     mv = expA.matvec(res.optimal_inputs[0])
     diff = {k: mv[k] - float(res.sigma[0]) * res.optimal_outputs[0][k] for k in mv}
@@ -1109,8 +1145,12 @@ UPO_MU = (1.0000108728713846, 0.9123051165132466)  # UPO_r05.json: |mu| neutral,
 UPO_F = 2.2165970612221577e-07  # UPO_r05.json: the reference's |F| at this orbit
 
 
-# the Floquet eigensolve: the example's Krylov dimension and f64 tolerance
-UPO_KDIM, UPO_TOL = 32, 1e-7
+# the Floquet eigensolve: the example's tolerance 1e-7 cut to 1e-6 to make
+# room for phase 15 (the phase asserts |mu| to 1e-4 and 1e-3), and a Krylov
+# dimension of 48 in place of the example's 32, so that the solve can stop
+# at its convergence check without a restart (at 1e-7 it took 52 matvecs
+# with the restart at 32 and 53 at 48, PERF.md section 6)
+UPO_KDIM, UPO_TOL = 48, 1e-6
 
 
 def upo_phase(dev, kdim: int = UPO_KDIM) -> dict:
@@ -1636,12 +1676,343 @@ def box21k_phase(dev) -> dict:
     return {"21k box steps (phase 13)": launches}
 
 
-# the schedule: the main process runs MAIN_FIRST, then starts one process
-# per group of SIDE (`--side a,b`: those phases one after another) and runs
-# MAIN_THEN beside them
-MAIN_FIRST = ("kernel", "parity", "nonlinear", "parity_r", "parity_u", "box2d")
-SIDE = ("oracle,resolvent", "otd,cylinder", "upo", "bfs")
-MAIN_THEN = ("re7500", "growth", "box21k")
+CHANNEL3 = {"x-": "P", "x+": "P", "y-": "W", "y+": "W", "z-": "P", "z+": "P"}
+WALLED3 = {f: "W" for f in ("x-", "x+", "y-", "y+", "z-", "z+")}
+
+
+def small_3d(dev) -> dict:
+    """Phase 3d's meshes, f64: tests/test_stepper.py's forced channel, (2, 2,
+    2) elements at order 4, periodic in x and z, and tests/test_precond.py's
+    walled (3, 2, 2) box at order 4, each with a base flow for the
+    linearized map."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+
+    channel3 = box_mesh((2, 2, 2), ((0.0, 2.0), (-1.0, 1.0), (0.0, 2.0)), CHANNEL3, order=4,
+                        dtype=torch.float64, device=dev)
+    walled3 = box_mesh((3, 2, 2), ((0.0, 1.5), (0.0, 1.0), (0.0, 1.0)), WALLED3, order=4,
+                       dtype=torch.float64, device=dev)
+    y = channel3.x[1]
+    x, yw, zw = walled3.x
+    bump = torch.sin(np.pi * x / 1.5) * torch.sin(np.pi * yw) * torch.sin(np.pi * zw)
+    return {"channel": (channel3, torch.stack([1 - y**2, 0.1 * (1 - y**2), 0 * y])),
+            "walled": (walled3, torch.stack([bump, 0.5 * bump, -0.3 * bump]))}
+
+
+def parity_3d_phase(dev):
+    """Phase 3d: the 3-D path on the card against the CPU, f64, on
+    `small_3d`'s meshes: `helmholtz_local` (the plain chain through
+    `tensor.linear`); the nonlinear `advance`, 10 steps of the forced
+    channel (tests/test_stepper.py:179-199); one `ExponentialPropagator`
+    matvec and rmatvec (10 steps) with the default 3-D preconditioner,
+    block Jacobi + constants through the matrix-free E; the B-adjoint
+    identity on the card. The solves run to 1e-14 (phase 3u: at 1e-12 the
+    card's and the CPU's slow E-CGs stop a few iterations apart). Asserts
+    <= 1e-12 relative, and that the 3-D path never ran the 2-D kernel (its
+    device counter does not move)."""
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+
+    t0 = time.time()
+    runs0 = hk.launches(dev)
+    meshes = {d: small_3d(d) for d in (dev, "cpu")}
+    rng = np.random.default_rng(31)
+    errs, iters = {}, {}
+    for name, (m_h, _) in meshes["cpu"].items():
+        u = rng.standard_normal((3,) + tuple(m_h.bm1.shape))
+        out = {d: sem.helmholtz_local(meshes[d][name][0], torch.as_tensor(u, device=d), 0.01,
+                                      91.7) for d in (dev, "cpu")}
+        errs[f"helmholtz_local/{name}"] = rel(out[dev].cpu(), out["cpu"])
+
+    nu = 0.8
+
+    def force(m, t, u, th):
+        f = torch.zeros((3,) + tuple(m.bm1.shape), dtype=m.dtype, device=m.device)
+        f[0] = 2 * nu
+        return f
+
+    fc = ns.FlowConfig(viscosity=nu, dt=2e-2, vtol=1e-14, ptol=1e-14, pmaxit=2000,
+                       forcing_fn=force)
+    states, iters["advance"] = {}, {}
+    for d in (dev, "cpu"):
+        m = meshes[d]["channel"][0]
+        stats = {}
+        states[d] = ns.advance(m, fc, ns.initial_state(m, fc), 10,
+                               pc_e=build_e_preconditioner(m, fc.dt / (11 / 6)), stats=stats)
+        iters["advance"][str(d)] = {k: sum(v) for k, v in stats.items()}
+    for k in ("u", "ulag", "nlag"):
+        errs[f"advance/{k}"] = rel(getattr(states[dev], k).cpu(), getattr(states["cpu"], k))
+    # the uniform force leaves the pressure at rounding's level: absolute
+    errs["advance/p (absolute)"] = float((states[dev].p.cpu() - states["cpu"].p).abs().max())
+
+    identity = {}
+    lc = LinConfig(flow=ns.FlowConfig(viscosity=0.01, dt=2e-2, vtol=1e-14, ptol=1e-14,
+                                      pmaxit=2000))
+    for name, (m_h, _) in meshes["cpu"].items():
+        th = torch.zeros((0,) + tuple(m_h.bm1.shape), dtype=torch.float64)
+        u0, v0 = (m_h.vmask * sem.dsavg(m_h, torch.as_tensor(
+            rng.standard_normal((3,) + tuple(m_h.bm1.shape)))) for _ in range(2))
+        outs = {}
+        for d in (dev, "cpu"):
+            m, base = meshes[d][name]
+            prop = ExponentialPropagator(m, lc, base, tau=0.2, dt=0.02, adjoint_tol_factor=1.0)
+            assert prop.nsteps == 10 and prop.pc_e.eb_w is None
+            assert prop.pc_e.blocks_inv is not None
+            st_mv, st_rmv = {}, {}
+            mv = prop.matvec({"u": u0.to(d), "theta": th.to(d)}, stats=st_mv)["u"]
+            rmv = prop.rmatvec({"u": v0.to(d), "theta": th.to(d)}, stats=st_rmv)["u"]
+            outs[d] = (mv, rmv)
+            iters[f"{name}/{d}"] = {"matvec": {k: sum(v) for k, v in st_mv.items()},
+                                    "rmatvec": {k: sum(v) for k, v in st_rmv.items()}}
+        errs[f"matvec/{name}"] = rel(outs[dev][0].cpu(), outs["cpu"][0])
+        errs[f"rmatvec/{name}"] = rel(outs[dev][1].cpu(), outs["cpu"][1])
+        m = meshes[dev][name][0]
+        lhs = float(sem.mass_dot(m, outs[dev][0], v0.to(dev)))
+        rhs = float(sem.mass_dot(m, u0.to(dev), outs[dev][1]))
+        identity[name] = abs(lhs - rhs) / abs(lhs)
+    runs = hk.launches(dev) - runs0
+    phase("parity_3d", t0, rel_err=errs, b_adjoint_identity_rel=identity, cg_iters=iters,
+          helmholtz2d_runs=runs, nel={k: v[0].nel for k, v in meshes["cpu"].items()})
+    assert runs == 0, runs
+    for key, value in errs.items():
+        assert value <= 1e-12, (key, value)
+    for key, value in identity.items():
+        assert value <= 1e-10, (key, value)
+
+
+def box3d_mesh(dev, dtype=torch.float32):
+    """bench.py:312-345's duct: 12 x 12 x 12 elements on [0, 4] x [-1, 1]^2,
+    periodic in x, walled in y and z, order 5 (1,119,744 velocity DOF)."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+
+    return box_mesh((12, 12, 12), ((0.0, 4.0), (-1.0, 1.0), (-1.0, 1.0)),
+                    {"x-": "P", "x+": "P", "y-": "W", "y+": "W", "z-": "W", "z+": "W"},
+                    order=5, dtype=dtype, device=dev)
+
+
+def box3d_phase(dev):
+    """Phase 14: box3d, the configuration of bench.py:312-345 exactly: the
+    duct of `box3d_mesh` in f32, nu = 1e-3, dt = 2e-3, vtol = ptol = 1e-5,
+    vmaxit 60, pmaxit 150, the base flow (1 - y^2)(1 - z^2), the default
+    preconditioner at dt/(11/6) (block Jacobi + constants, the matrix-free
+    E), 20 linearized steps per call with the sustained protocol of
+    bench.py:73-106 (the state B-normalized before every call) and its
+    floor; then the exact adjoint of the same program (its tolerances, so
+    the B-adjoint identity is held to them), sustained, and its tape's
+    bytes. Prints ms/step, CG iterations per step, the preconditioner's
+    and the Jacobi diagonal's build seconds and the diagonal's peak memory
+    above what was allocated before it, and the phase's peak device
+    memory. Asserts every output finite, every CG converged inside its
+    maxit, and <M u, v>_B = <u, M* v>_B to 1e-3 (f32 solves at 1e-5)."""
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, make_adjoint_propagator, propagate
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import sem
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = box3d_mesh(dev)
+    fc = ns.FlowConfig(viscosity=1e-3, dt=2e-3, vtol=1e-5, ptol=1e-5, vmaxit=60, pmaxit=150)
+    cfg = LinConfig(flow=fc)
+    y, z = mesh.x[1], mesh.x[2]
+    base_u = torch.stack([(1 - y**2) * (1 - z**2), 0 * y, 0 * y])
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=torch.float32, device=dev)
+    g0 = 11 / 6
+    t1 = time.time()
+    pc = build_e_preconditioner(mesh, fc.dt / g0)
+    torch.cuda.synchronize()
+    pc_s = time.time() - t1
+    assert pc.eb_w is None and pc.blocks_inv is not None and pc.agg_of_el is None
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.time()
+    vdiag = ns.helmholtz_diag(mesh, fc.viscosity, g0 / fc.dt, mesh.vmask)
+    torch.cuda.synchronize()
+    diag_s = time.time() - t1
+    diag_peak = torch.cuda.max_memory_allocated(dev) - before
+    assert bool(torch.isfinite(vdiag).all()) and float(vdiag.min()) > 0
+    nsteps, dof = 20, 3 * mesh.nel * mesh.npts
+    orders = ns.bdf_orders(fc, nsteps)
+    psolves = ns.pressure_solvers(mesh, fc, orders, pc)
+    vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag, None)
+
+    def prop(u, stats=None):
+        return propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc, vdiag=vdiag,
+                         psolves=psolves, vsolves=vsolves, stats=stats)[0]
+
+    def bnorm(u):
+        return u / sem.mass_dot(mesh, u, u).sqrt().clamp_min(torch.finfo(u.dtype).tiny)
+
+    every = {"helmholtz": [], "pressure": []}
+
+    def timed(state, scale, fn=prop, reps=3):
+        """-> (s per call, mean CG iterations per step, last state)."""
+        state = scale * bnorm(fn(state))  # warm-up
+        stats = {}
+        torch.cuda.synchronize()
+        t2 = time.time()
+        for _ in range(reps):
+            state = scale * bnorm(fn(state, stats=stats))
+        torch.cuda.synchronize()
+        for k, v in stats.items():
+            every[k] += v
+        return ((time.time() - t2) / reps, {k: statistics.mean(v) for k, v in stats.items()},
+                state)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def fresh():
+        return bnorm(mesh.vmask * sem.dsavg(mesh, torch.randn(
+            (3,) + tuple(mesh.bm1.shape), generator=gen, dtype=torch.float32, device=dev)))
+
+    s_sus, iters_sus, state = timed(fresh(), 1.0)
+    assert bool(torch.isfinite(state).all())
+    s_floor, iters_floor, _ = timed(1e-8 * state, 1e-8)
+
+    t1 = time.time()
+    adj = make_adjoint_propagator(mesh, cfg, base_u, th, nsteps, pc_e=pc, vdiag=vdiag,
+                                  psolves=psolves, vsolves=vsolves)
+    torch.cuda.synchronize()
+    rec_s = time.time() - t1
+    s_adj, adj_iters, adj_state = timed(fresh(), 1.0,
+                                        fn=lambda u, stats=None: adj(u, th, stats=stats)[0])
+    assert bool(torch.isfinite(adj_state).all()) and adj.tape_bytes > 0
+    u0, v0 = fresh(), fresh()
+    mu, mtv = prop(u0), adj(v0, th)[0]
+    assert bool(torch.isfinite(mu).all()) and bool(torch.isfinite(mtv).all())
+    lhs, rhs = float(sem.mass_dot(mesh, mu, v0)), float(sem.mass_dot(mesh, u0, mtv))
+    identity = abs(lhs - rhs) / abs(lhs)
+    peak = torch.cuda.max_memory_allocated(dev)
+    phase("box3d", t0, nel=mesh.nel, order=mesh.basis.n - 1, dof=dof, nsteps=nsteps,
+          ms_per_step=1e3 * s_sus / nsteps, ms_per_step_floor=1e3 * s_floor / nsteps,
+          dof_steps_per_s=dof * nsteps / s_sus, cg_iters_per_step=iters_sus,
+          cg_iters_per_step_floor=iters_floor, adjoint_ms_per_step=1e3 * s_adj / nsteps,
+          adjoint_cg_iters_per_step=adj_iters, adjoint_build_s=rec_s, tape_bytes=adj.tape_bytes,
+          max_cg_iters={k: max(v) for k, v in every.items()}, pc_build_s=pc_s,
+          local_diagonal_build_s=diag_s, local_diagonal_peak_bytes=diag_peak,
+          peak_device_bytes=peak, b_adjoint_identity_rel=identity, lhs=lhs, rhs=rhs)
+    assert max(every["helmholtz"]) < fc.vmaxit and max(every["pressure"]) < fc.pmaxit, every
+    assert identity <= 1e-3, (lhs, rhs)
+
+
+# the Krylov dimension and residual tolerance of phase 15: the two leading
+# modes are shear modes, whose left and right eigenvectors agree, so the
+# eigenvalue error is about residual^2 / gap (residuals 1.7e-6 and 3.4e-4
+# put both within 1.7e-7 of the oracle). A Krylov dimension the solve
+# does not reach converges without a restart: 336 matvecs, against 407 at
+# 60 and 464 at 100 (PERF.md section 6)
+CHANNEL3D_KDIM, CHANNEL3D_TOL = 400, 5e-4
+
+
+def channel3d_phase(dev):
+    """Phase 15: the main path in 3-D through the user entry points
+    (box_mesh -> ExponentialPropagator -> flow_vector_space ->
+    linear_stability_analysis_fixed_point): plane Poiseuille at Re = 500
+    extruded spanwise, (4, 5, 2) elements at order 6 on [0, 2 pi] x [-1, 1]
+    x [0, 2], periodic in x and z, f64, vtol = ptol = 1e-10, tau = 0.5,
+    nev 2, with the driver's files (spectrum, mode files, timers.log)
+    written to .scratch/channel3d. The oracle is analytic. The
+    spanwise-uniform shear modes cos(pi y / 2) e_x and cos(pi y / 2) e_z
+    both have lambda_1 = -nu (pi / 2)^2, a double eigenvalue; the next is
+    -nu pi^2 (sin(pi y) e_x and e_z), and every other mode decays faster
+    (PERF.md section 4). An eigensolve from one start vector reports a
+    double eigenvalue once unless rounding brings in its second direction
+    (tests/test_torch_3d_propagator.py, in both packages). Asserts the
+    leading eigenvalue within 1e-5 of lambda_1, the second within 1e-5 of
+    lambda_1 or of -nu pi^2, and both Ritz residuals below the solve's
+    tol."""
+    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh,
+                                  flow_vector_space, linear_stability_analysis_fixed_point)
+
+    t0 = time.time()
+    mesh = box_mesh((4, 5, 2), ((0.0, 2 * np.pi), (-1.0, 1.0), (0.0, 2.0)), CHANNEL3, order=6,
+                    dtype=torch.float64, device=dev)
+    y = mesh.x[1]
+    re = 500.0
+    cfg = LinConfig(flow=FlowConfig(viscosity=1 / re, dt=1e-2, vtol=1e-10, ptol=1e-10))
+    prop = ExponentialPropagator(mesh, cfg, torch.stack([1 - y**2, 0 * y, 0 * y]), tau=0.5,
+                                 cfl=0.5)
+    outdir = os.path.join(ROOT, ".scratch", "channel3d")
+    res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
+                                                kdim=CHANNEL3D_KDIM, nev=2, tol=CHANNEL3D_TOL,
+                                                maxiter=2, outdir=outdir)
+    lam1, lam3 = -(1 / re) * np.pi**2 * np.array([0.25, 1.0])
+    dist = np.array([abs(res.eigvals[0] - lam1),
+                     min(abs(res.eigvals[1] - lam1), abs(res.eigvals[1] - lam3))])
+    files = sorted(os.listdir(outdir))
+    phase("channel3d", t0, nel=mesh.nel, dt=prop.dt, nsteps=prop.nsteps,
+          eigvals=[[v.real, v.imag] for v in res.eigvals], oracle=[lam1, lam3],
+          dist=dist.tolist(), residuals=res.residuals.tolist(), n_matvec=res.n_matvec,
+          seconds=res.elapsed, s_per_matvec=res.elapsed / res.n_matvec, files=files)
+    assert {"dir_eigenspectrum.npy", "dirmode0.f00001.npz", "dirmode0.f00002.npz",
+            "timers.log"} <= set(files), files
+    assert np.all(dist <= 1e-5), dist
+    assert np.all(res.residuals < CHANNEL3D_TOL), res.residuals
+
+
+def eigs_depth(dev, case: str, settings: list[str]) -> None:
+    """`--eigs-depth channel3d|re7500 kdim:tol:maxiter ...`: the matvecs and
+    seconds of phase 15's or phase 6's eigensolve at other Krylov
+    dimensions and tolerances, one JSON line per setting (the evidence for
+    CHANNEL3D_KDIM and TOL_RE7500). channel3d: `eigs` on phase 15's
+    propagator, nev 2 from seed 1234, printing each cycle's eigenvalues and
+    residuals; re7500: phase 6's eigensolve with the distance of the
+    nearest eigenvalue from the Orr-Sommerfeld mode."""
+    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh, eigs,
+                                  flow_vector_space, linear_stability_analysis_fixed_point)
+    from neklab_tpu_torch.utils.orr_sommerfeld import orr_sommerfeld_spectrum
+
+    for setting in settings:
+        kdim, tol, maxiter = setting.split(":")
+        kdim, tol, maxiter = int(kdim), float(tol), int(maxiter)
+        t0 = time.time()
+        if case == "channel3d":
+            mesh = box_mesh((4, 5, 2), ((0.0, 2 * np.pi), (-1.0, 1.0), (0.0, 2.0)), CHANNEL3,
+                            order=6, dtype=torch.float64, device=dev)
+            y = mesh.x[1]
+            cfg = LinConfig(flow=FlowConfig(viscosity=1 / 500, dt=1e-2, vtol=1e-10, ptol=1e-10))
+            prop = ExponentialPropagator(mesh, cfg, torch.stack([1 - y**2, 0 * y, 0 * y]),
+                                         tau=0.5, cfl=0.5)
+            t0 = time.time()
+
+            def cb(c, r, prop=prop, t0=t0):
+                lam = np.log(r.eigvals.astype(complex)) / prop.tau
+                print("cycle", c, r.n_matvec, [str(v) for v in lam], r.residuals.tolist(),
+                      f"{time.time() - t0:.1f}", flush=True)
+
+            res = eigs(prop, flow_vector_space(mesh, 0), nev=2, kdim=kdim, tol=tol,
+                       maxiter=maxiter, seed=1234, callback=cb)
+            lam = np.log(res.eigvals.astype(complex)) / prop.tau
+            out = {"eig": [str(v) for v in lam], "res": res.residuals.tolist(),
+                   "mv": res.n_matvec}
+        else:
+            mesh, prop = poiseuille(dev, torch.float32, (12, 10), 8, 7500.0, 1e-7)
+            t0 = time.time()
+            res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
+                                                        kdim=kdim, nev=2, tol=tol,
+                                                        maxiter=maxiter)
+            os_lead = orr_sommerfeld_spectrum(7500.0, 1.0, 128)[0]
+            out = {"mv": res.n_matvec, "eig": [str(v) for v in res.eigvals],
+                   "res": res.residuals.tolist(),
+                   "dist": float(np.min(np.abs(res.eigvals - os_lead)))}
+        print(json.dumps({"case": case, "kdim": kdim, "tol": tol, **out,
+                          "s": time.time() - t0}), flush=True)
+
+
+# the schedule: the main process runs MAIN_FIRST (the phases that time the
+# card alone), then starts one process per group of SIDE (`--side a,b`:
+# those phases one after another) and runs MAIN_THEN beside them. Phase 15
+# is bound by the device and runs at its own speed only alone, so it comes
+# last in the main process, where most of it runs after the groups have
+# ended (PERF.md section 6)
+MAIN_FIRST = ("kernel", "box2d")
+SIDE = ("oracle,resolvent,box21k,box3d", "otd,cylinder", "upo", "bfs")
+MAIN_THEN = ("parity", "nonlinear", "parity_r", "parity_u", "parity_3d", "re7500", "growth",
+             "channel3d")
 
 
 def run_phase(name: str, dev, state: dict):
@@ -1687,6 +2058,12 @@ def run_phase(name: str, dev, state: dict):
                 "BFS transient growth (phase 12)": runs["analysis"]}
     elif name == "box21k":
         return box21k_phase(dev)
+    elif name == "parity_3d":
+        parity_3d_phase(dev)
+    elif name == "box3d":
+        box3d_phase(dev)
+    elif name == "channel3d":
+        channel3d_phase(dev)
     else:
         raise SystemExit(f"chip_smoke: no phase {name!r}")
     return None
@@ -1712,7 +2089,13 @@ def main() -> None:
     if args[:1] == ["--cylinder"] and args[1:]:
         cylinder_phase(dev, getattr(torch, args[1]))
         return
+    if args[:1] == ["--eigs-depth"]:
+        eigs_depth(dev, args[1], args[2:])
+        return
     if args[:1] == ["--side"]:
+        # five processes share the host's cores: a group's CPU work (the
+        # card-vs-CPU references, host preprocessing) takes two
+        torch.set_num_threads(min(torch.get_num_threads(), 2))
         runs: dict = {}
         for name in args[1].split(","):
             runs.update(run_phase(name, dev, {}) or {})
@@ -1760,6 +2143,8 @@ def main() -> None:
     side = {group: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", group],
                                     stdout=logs[group], text=True)
             for group in SIDE}
+    # five processes share the host's cores (the side processes take two)
+    torch.set_num_threads(min(torch.get_num_threads(), 4))
     by_path = {}
     try:
         for name in MAIN_THEN:

@@ -4,9 +4,12 @@ point itself.
 
 Counterparts of `neklab_tpu.analysis.linear_stability_analysis_fixed_point`,
 `transient_growth_analysis_fixed_point` and `newton_fixed_point_iteration`,
-writing the same `<dir|adj>_eigenspectrum.npy`, `singular_spectrum.dat` and
-`residual.dat` (the OTD driver, the timers and the eigenvector outposting
-are later ROADMAP items).
+writing the same `<dir|adj>_eigenspectrum.npy`, `singular_spectrum.dat`,
+`residual.dat`, eigenvector field files (`<dir|adj>mode0.f<NNNNN>.npz`) and
+`timers.log`. Every driver runs inside a named timer and every (r)matvec of
+the propagator inside `exptA/matvec` or `exptA/rmatvec`; at its exit the
+driver writes the timers' report (the reference's LightKrylov timer
+report). The OTD driver is `otd.otd_analysis`.
 """
 
 from __future__ import annotations
@@ -21,12 +24,57 @@ from typing import Any
 import numpy as np
 
 from .krylov.eigs import eigs
+from .krylov.linop import LinearOperator
 from .krylov.newton import constant_tol, dynamic_tol, newton
 from .krylov.space import VectorSpace
 from .krylov.svd import svds
 from .linops.exponential_propagator import ExponentialPropagator
+from .utils.fldfile import _host
+from .utils.io import outpost
+from .utils.timers import timer
 
 logger = logging.getLogger("neklab_tpu_torch.analysis")
+
+
+class _TimedOp(LinearOperator):
+    """An operator whose every matvec and rmatvec lands in the timers, under
+    `<name>/matvec` and `<name>/rmatvec`."""
+
+    def __init__(self, op, name: str):
+        self._op = op
+        self._name = name
+
+    def matvec(self, x):
+        with timer(f"{self._name}/matvec"):
+            return self._op.matvec(x)
+
+    def rmatvec(self, x):
+        with timer(f"{self._name}/rmatvec"):
+            return self._op.rmatvec(x)
+
+
+def _finalize_timers(outdir: str | None) -> None:
+    """The driver's exit report, printed and (with outdir) written to
+    timers.log."""
+    report = timer.report()
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        with open(os.path.join(outdir, "timers.log"), "w") as f:
+            f.write(report + "\n")
+
+
+def _outpost_modes(outdir: str, prefix: str, eigenvectors: list) -> None:
+    """One field file per eigenvector, `<prefix>mode0.f<i>.npz`, a complex
+    leaf split into `<name>_re` and `<name>_im`."""
+    for i, v in enumerate(eigenvectors):
+        fields = {}
+        for name, leaf in v.items():
+            arr = _host(leaf)
+            if np.iscomplexobj(arr):
+                fields[name + "_re"], fields[name + "_im"] = arr.real, arr.imag
+            else:
+                fields[name] = arr
+        outpost(outdir, fields, prefix=prefix, case="mode", counter=i + 1)
 
 
 @dataclasses.dataclass
@@ -55,6 +103,8 @@ def linear_stability_analysis_fixed_point(
     maxiter: int = 30,
     outdir: str | None = None,
     seed: int = 1234,
+    checkpoint: str | None = None,
+    checkpoint_every: int = 8,
     check_every: int = 8,
     v0: dict | None = None,
 ) -> StabilityResult:
@@ -62,7 +112,10 @@ def linear_stability_analysis_fixed_point(
     adjoint (through `rmatvec`); eigenvalues mapped back by lambda =
     log(mu)/tau. With `outdir`, writes dir_eigenspectrum.npy (or
     adj_eigenspectrum.npy; [2, nev]: real and imaginary parts) after every
-    cycle."""
+    cycle, and at the end the eigenvectors as field files
+    (`dirmode0.f00001.npz`, ...; complex leaves split into `_re`/`_im`)
+    and timers.log. checkpoint, checkpoint_every: the Arnoldi
+    kill-and-resume file (`krylov.eigs`)."""
     t0 = time.time()
     prefix = "adj" if adjoint else "dir"
 
@@ -70,17 +123,25 @@ def linear_stability_analysis_fixed_point(
         if outdir:
             _save_spectrum(outdir, prefix, result.eigvals, exptA.tau)
 
-    res = eigs(exptA, space, nev=nev, kdim=kdim, tol=tol, maxiter=maxiter, adjoint=adjoint,
-               v0=v0, callback=cb, seed=seed, check_every=check_every)
+    with timer(f"{prefix}_stability"):
+        res = eigs(_TimedOp(exptA, "exptA"), space, nev=nev, kdim=kdim, tol=tol,
+                   maxiter=maxiter, adjoint=adjoint, v0=v0, callback=cb, seed=seed,
+                   checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+                   check_every=check_every)
     lam = np.log(res.eigvals.astype(complex)) / exptA.tau
     elapsed = time.time() - t0
+    _finalize_timers(outdir)
     logger.info("%s stability: %d matvecs, %.1fs; leading lambda = %s",
                 prefix, res.n_matvec, elapsed, lam[0])
+    eigenvectors = res.eigenvectors()
+    if outdir:
+        _save_spectrum(outdir, prefix, res.eigvals, exptA.tau)
+        _outpost_modes(outdir, prefix, eigenvectors)
     return StabilityResult(
         eigvals=lam,
         multipliers=res.eigvals,
         residuals=res.residuals,
-        eigenvectors=res.eigenvectors(),
+        eigenvectors=eigenvectors,
         n_matvec=res.n_matvec,
         elapsed=elapsed,
     )
@@ -114,9 +175,11 @@ def newton_fixed_point_iteration(
     residual.dat: one line per entry of the history, `i |F|`."""
     t0 = time.time()
     sched = dynamic_tol(tol) if scheduler == "dynamic" else constant_tol(tol)
-    res = newton(system, x0, space, tol=tol, maxiter=maxiter, scheduler=sched,
-                 gmres_kdim=gmres_kdim, callback=callback)
+    with timer("newton_fixed_point"):
+        res = newton(system, x0, space, tol=tol, maxiter=maxiter, scheduler=sched,
+                     gmres_kdim=gmres_kdim, callback=callback)
     elapsed = time.time() - t0
+    _finalize_timers(outdir)
     logger.info("newton: converged=%s |F|=%.3e in %d its (%.1fs)", res.converged,
                 res.residual_norm, res.iterations, elapsed)
     if outdir:
@@ -147,14 +210,20 @@ def transient_growth_analysis_fixed_point(
     tol: float = 1e-6,
     outdir: str | None = None,
     seed: int = 1234,
+    checkpoint: str | None = None,
+    checkpoint_every: int = 4,
 ) -> TransientGrowthResult:
     """Lanczos SVD of exp(tau A), from `space.rand(seed)`: optimal transient
     energy growth over tau. Each Lanczos iteration is one matvec and one
     rmatvec. With `outdir`, writes singular_spectrum.dat (one line per
-    singular value: index, sigma, residual)."""
+    singular value: index, sigma, residual) and timers.log. checkpoint,
+    checkpoint_every: the Lanczos kill-and-resume file (`krylov.svds`)."""
     t0 = time.time()
-    res = svds(exptA, space, nsv=nsv, kdim=kdim, tol=tol, seed=seed)
+    with timer("transient_growth"):
+        res = svds(_TimedOp(exptA, "exptA"), space, nsv=nsv, kdim=kdim, tol=tol, seed=seed,
+                   checkpoint=checkpoint, checkpoint_every=checkpoint_every)
     elapsed = time.time() - t0
+    _finalize_timers(outdir)
     logger.info("transient growth: sigma = %s (%d matvecs, %.1fs)", res.s, res.n_matvec, elapsed)
     if outdir:
         os.makedirs(outdir, exist_ok=True)

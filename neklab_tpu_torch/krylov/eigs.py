@@ -3,18 +3,20 @@
 Python orchestration over dict-of-tensor vectors; the vector algebra runs on
 the vectors' device (see space.KrylovBasis) and the small dense algebra
 (Schur form, eigendecomposition of the projected matrix) on the host in
-numpy/scipy. Counterpart of `neklab_tpu.krylov.eigs` (Arnoldi-factorization
-checkpoints are not ported).
+numpy/scipy. Counterpart of `neklab_tpu.krylov.eigs`, with its
+Arnoldi-factorization checkpoint in the reference's npz layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Callable
 
 import numpy as np
 import scipy.linalg
+import torch
 
 from .linop import AdjointOperator, LinearOperator
 from .space import KrylovBasis, VectorSpace
@@ -47,11 +49,14 @@ def _expand_krylov(
     j0: int,
     j1: int,
     breakdown_tol: float = 1e-12,
+    save_cb: Callable | None = None,
     conv_cb: Callable | None = None,
 ) -> tuple[int, int]:
     """Arnoldi expansion columns j0..j1-1 (V has j0+1 filled slots on entry).
-    Returns (matvecs performed, columns now valid). conv_cb(m) may return
-    True to stop early once the size-m projected problem has converged."""
+    Returns (matvecs performed, columns now valid). save_cb(kfilled, n_mv)
+    runs after each completed column (the checkpoint's hook). conv_cb(m) may
+    return True to stop early once the size-m projected problem has
+    converged."""
     n_mv = 0
     for j in range(j0, j1):
         w = op.matvec(V[j])
@@ -73,10 +78,73 @@ def _expand_krylov(
             w, _ = V.orthogonalize(w, passes=2)
             w, _ = space.normalize(w)
         V.append(w)
+        if save_cb is not None:
+            save_cb(j + 1, n_mv)
         if conv_cb is not None and j + 1 < j1 and conv_cb(j + 1):
             logger.info("eigs: early expansion stop at m=%d (< kdim=%d)", j + 1, j1)
             return n_mv, j + 1
     return n_mv, j1
+
+
+def save_stack(data: dict, prefix: str, stack: dict) -> None:
+    """Host copies of a stacked basis's leaves as data[f"{prefix}{i}"], in the
+    order JAX flattens a dict (sorted keys), so the reference reads them."""
+    for i, name in enumerate(sorted(stack)):
+        data[f"{prefix}{i}"] = stack[name].detach().cpu().numpy()
+
+
+def load_stack(z, prefix: str, template: Vector, kmax: int) -> dict:
+    """The stacked basis written by `save_stack` (or by the reference), on
+    the template's device and in its dtypes; raises on a shape that is not
+    [kmax, *leaf.shape]."""
+    stack = {}
+    for i, name in enumerate(sorted(template)):
+        leaf = template[name]
+        arr = z[f"{prefix}{i}"]
+        want = (kmax,) + tuple(leaf.shape)
+        if arr.shape != want:
+            raise ValueError(f"checkpoint leaf {i} shape {arr.shape} != expected {want} "
+                             "(kdim or mesh changed?)")
+        stack[name] = torch.as_tensor(arr, dtype=leaf.dtype).to(leaf.device)
+    return {name: stack[name] for name in template}
+
+
+def check_fingerprint(path: str, z, fingerprint: str) -> None:
+    if "fingerprint" in z and str(z["fingerprint"]) != fingerprint:
+        raise ValueError(f"checkpoint {path} fingerprint {z['fingerprint']!s} != expected "
+                         f"{fingerprint!r} (different solve: delete the stale file)")
+
+
+def save_atomic(path: str, data: dict) -> None:
+    """np.savez to a temporary name, then renamed over path: a reader sees
+    the old file or the new one, never a partial one."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **data)
+    os.replace(tmp, path)
+
+
+def _save_krylov_state(path: str, V: KrylovBasis, H: np.ndarray, n_mv: int,
+                       fingerprint: str = "") -> None:
+    """The running Arnoldi factorization, atomically: the reference's npz
+    keys (leaf_<i>, H, vk, n_mv, fingerprint). H columns 0..V.k-2 are valid
+    and V holds V.k slots."""
+    data = {}
+    save_stack(data, "leaf_", V.stack)
+    data.update(H=H, vk=np.asarray(V.k), n_mv=np.asarray(n_mv),
+                fingerprint=np.asarray(fingerprint))
+    save_atomic(path, data)
+
+
+def _load_krylov_state(path: str, space: VectorSpace, template: Vector, kmax: int,
+                       fingerprint: str = ""):
+    """-> (V, H, n_mv) resuming a `_save_krylov_state` file (the port's or
+    the reference's)."""
+    with np.load(path) as z:
+        check_fingerprint(path, z, fingerprint)
+        stack = load_stack(z, "leaf_", template, kmax)
+        H = np.asarray(z["H"])
+        vk, n_mv = int(z["vk"]), int(z["n_mv"])
+    return KrylovBasis(space, None, kmax, _stack=stack, _k=vk), H, n_mv
 
 
 def eigs(
@@ -90,6 +158,9 @@ def eigs(
     v0: Vector | None = None,
     callback: Callable | None = None,
     seed: int = 0,
+    checkpoint: str | None = None,
+    checkpoint_every: int = 8,
+    tag: str = "",
     check_every: int = 8,
 ) -> EigsResult:
     """Largest-modulus eigenpairs of `op` by Krylov-Schur-restarted Arnoldi.
@@ -103,7 +174,18 @@ def eigs(
     vector; otherwise `space.rand(seed)`. check_every: test the projected
     problem every so many columns during expansion and stop the cycle once
     all nev wanted pairs converged (0 = only at kdim). Converged leading
-    Schur blocks are locked at each restart."""
+    Schur blocks are locked at each restart.
+
+    checkpoint: path of the running factorization (basis, H, matvec
+    count). If the file exists the solve resumes from it; while running it
+    is re-saved atomically every `checkpoint_every` Arnoldi columns and at
+    every restart, so a killed solve loses at most that many matvecs. The
+    file records a fingerprint of the problem (kdim, nev, seed, `tag`),
+    checked at resume, and is deleted on success only: a solve that ends
+    unconverged keeps it, to resume with a larger maxiter. The layout and
+    the fingerprint are the reference's (`which=lm`, the only order here),
+    so either package resumes the other's file; a seed names a different
+    start vector in each, which a resume does not use."""
     if adjoint:
         op = AdjointOperator(op)
     if v0 is None:
@@ -112,11 +194,18 @@ def eigs(
     if nrm == 0:
         raise ValueError("zero start vector")
 
+    fp = f"eigs;kdim={kdim};nev={nev};which=lm;seed={seed};tag={tag}"
     n_mv = 0
-    V = KrylovBasis(space, v0, kdim + 1)
-    V.append(v0)
-    H = np.zeros((kdim + 1, kdim))
-    k_active = 0  # currently valid columns of H
+    if checkpoint is not None and os.path.exists(checkpoint):
+        V, H, n_mv = _load_krylov_state(checkpoint, space, v0, kdim + 1, fingerprint=fp)
+        k_active = V.k - 1
+        logger.info("eigs: resumed from %s (%d columns, %d matvecs so far)", checkpoint,
+                    k_active, n_mv)
+    else:
+        V = KrylovBasis(space, v0, kdim + 1)
+        V.append(v0)
+        H = np.zeros((kdim + 1, kdim))
+        k_active = 0  # currently valid columns of H
 
     def spectrum(m, H):
         """Ritz values/vectors + residuals of the m-column factorization."""
@@ -128,6 +217,13 @@ def eigs(
         return evals[order], res[order], evecs[:, order]
 
     for cycle in range(maxiter):
+        save_cb = None
+        if checkpoint is not None and checkpoint_every:
+            # this cycle's (V, H, n_mv): V is rebound at restarts
+            def save_cb(kfilled, mv, _V=V, _H=H, _mv=n_mv):
+                if kfilled % checkpoint_every == 0:
+                    _save_krylov_state(checkpoint, _V, _H, _mv + mv, fingerprint=fp)
+
         conv_cb = None
         if check_every:
             def conv_cb(m, _H=H):
@@ -136,7 +232,8 @@ def eigs(
                 _, res_s, _ = spectrum(m, _H)
                 return bool(np.all(res_s[:nev] < tol))
 
-        mv, m = _expand_krylov(op, space, V, H, k_active, kdim, conv_cb=conv_cb)
+        mv, m = _expand_krylov(op, space, V, H, k_active, kdim, save_cb=save_cb,
+                               conv_cb=conv_cb)
         n_mv += mv
         evals_sorted, res_sorted, evecs_sorted = spectrum(m, H)
         conv = res_sorted[:nev] < tol
@@ -155,6 +252,14 @@ def eigs(
         if conv.all() or cycle == maxiter - 1 or m - 2 < 1:
             # m - 2 < 1: a hard breakdown left an invariant subspace too
             # small to restart; its spectrum is the result
+            if checkpoint is not None:
+                if conv.all():
+                    if os.path.exists(checkpoint):
+                        os.remove(checkpoint)
+                else:
+                    _save_krylov_state(checkpoint, V, H, n_mv, fingerprint=fp)
+                    logger.info("eigs: unconverged at maxiter=%d; checkpoint kept at %s",
+                                maxiter, checkpoint)
             return result
 
         # ---- Krylov-Schur restart (with locking of converged blocks) ----
@@ -192,5 +297,7 @@ def eigs(
         H[:p_eff, :p_eff] = T[:p_eff, :p_eff]
         H[p_eff, :p_eff] = bnew
         k_active = p_eff
+        if checkpoint is not None:
+            _save_krylov_state(checkpoint, V, H, n_mv, fingerprint=fp)
 
     raise RuntimeError("unreachable")

@@ -10,6 +10,8 @@ Gram products and two basis combinations per Arnoldi step.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 from typing import Any, Callable
 
 import numpy as np
@@ -139,3 +141,34 @@ class KrylovBasis:
             new.stack[name][:p] = torch.tensordot(c, s[:k], dims=([0], [0]))
         new.k = p
         return new
+
+
+def euclidean_space(rand_template: Vector | None = None) -> VectorSpace:
+    """The plain Euclidean dot over every leaf of dict vectors (the dense
+    tests' space). dot_fn contracts each leaf's own axes, so a stacked basis
+    [k, ...] against one vector gives its k Gram entries. rand_template: a
+    vector whose leaves' shapes, dtypes and device `rand(seed)` draws
+    standard normals for (from a `torch.Generator` seeded with seed); None
+    gives a space without rand."""
+
+    def dot_fn(x, y):
+        terms = []
+        for name, b in y.items():
+            a = x[name]
+            ab = a * b
+            terms.append(ab.reshape(ab.shape[: ab.dim() - b.dim()] + (b.numel(),)).sum(-1))
+        return functools.reduce(operator.add, terms)
+
+    rand_fn = None
+    if rand_template is not None:
+
+        def rand_fn(seed: int):
+            out = {}
+            for name, leaf in rand_template.items():
+                gen = torch.Generator(device=leaf.device)
+                gen.manual_seed(int(seed) + len(out))
+                out[name] = torch.randn(tuple(leaf.shape), generator=gen, dtype=leaf.dtype,
+                                        device=leaf.device)
+            return out
+
+    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn)

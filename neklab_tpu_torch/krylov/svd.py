@@ -3,18 +3,20 @@
 Golub-Kahan-Lanczos with full CGS2 reorthogonalization of both bases (stacked
 buffers, batched Gram products), dense SVD of the projected bidiagonal
 matrix on the host. Each iteration costs one matvec and one rmatvec.
-Counterpart of `neklab_tpu.krylov.svd` (Lanczos checkpoints are not ported,
-as `eigs`'s are not).
+Counterpart of `neklab_tpu.krylov.svd`, with its Lanczos checkpoint in the
+reference's npz layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any
 
 import numpy as np
 
+from .eigs import check_fingerprint, load_stack, save_atomic, save_stack
 from .linop import LinearOperator
 from .space import KrylovBasis, VectorSpace
 
@@ -45,6 +47,29 @@ def _sub(basis: KrylovBasis, m: int) -> KrylovBasis:
     return KrylovBasis(basis.space, None, basis.kmax, _stack=basis.stack, _k=m)
 
 
+def _save_lanczos_state(path, U, V, alphas, betas, j, n_mv, fingerprint=""):
+    """Both bases and the couplings, atomically, under the reference's npz
+    keys (u_<i>, v_<i>, alphas, betas, j, n_mv, uk, vk, fingerprint)."""
+    data = {}
+    save_stack(data, "u_", U.stack)
+    save_stack(data, "v_", V.stack)
+    data.update(alphas=alphas, betas=betas, j=np.asarray(j), n_mv=np.asarray(n_mv),
+                uk=np.asarray(U.k), vk=np.asarray(V.k), fingerprint=np.asarray(fingerprint))
+    save_atomic(path, data)
+
+
+def _load_lanczos_state(path, space, template, kdim, fingerprint=""):
+    """-> (U, V, alphas, betas, j, n_mv) from a `_save_lanczos_state` file
+    (the port's or the reference's)."""
+    with np.load(path) as z:
+        check_fingerprint(path, z, fingerprint)
+        U = KrylovBasis(space, None, kdim + 1, _stack=load_stack(z, "u_", template, kdim + 1),
+                        _k=int(z["uk"]))
+        V = KrylovBasis(space, None, kdim + 1, _stack=load_stack(z, "v_", template, kdim + 1),
+                        _k=int(z["vk"]))
+        return U, V, np.asarray(z["alphas"]), np.asarray(z["betas"]), int(z["j"]), int(z["n_mv"])
+
+
 def svds(
     op: LinearOperator,
     space: VectorSpace,
@@ -53,23 +78,46 @@ def svds(
     tol: float = 1e-6,
     v0: Vector | None = None,
     seed: int = 0,
+    checkpoint: str | None = None,
+    checkpoint_every: int = 4,
+    tag: str = "",
 ) -> SvdsResult:
     """Leading nsv singular triplets of `op` via Lanczos bidiagonalization.
 
     Stops once the nsv leading triplets' residuals fall below tol times the
     largest singular value, or after kdim iterations. v0: start vector;
-    otherwise `space.rand(seed)`."""
+    otherwise `space.rand(seed)`.
+
+    checkpoint: path of the kill-and-resume state (both bases and the
+    couplings), saved atomically every `checkpoint_every` iterations,
+    resumed when the file exists, deleted on convergence only. Its
+    fingerprint (kdim, nsv, seed, `tag`) is checked at resume. Layout and
+    fingerprint are the reference's, as in `eigs`."""
     if v0 is None:
         v0 = space.rand(seed)
     v, _ = space.normalize(v0)
 
+    fp = f"svds;kdim={kdim};nsv={nsv};seed={seed};tag={tag}"
     V = KrylovBasis(space, v, kdim + 1)
     V.append(v)
     U: KrylovBasis | None = None
     alphas = np.zeros(kdim)
     betas = np.zeros(kdim)  # betas[j]: coupling A^T u_j -> v_{j+1}
     n_mv = 0
-    for j in range(kdim):
+    j0 = 0
+    if checkpoint is not None and os.path.exists(checkpoint):
+        U, V, alphas_l, betas_l, j0, n_mv = _load_lanczos_state(checkpoint, space, v, kdim,
+                                                                fingerprint=fp)
+        m = min(len(alphas_l), kdim)
+        alphas[:m], betas[:m] = alphas_l[:m], betas_l[:m]
+        logger.info("svds: resumed from %s (j=%d, %d matvecs)", checkpoint, j0, n_mv)
+
+    def done(result):
+        if checkpoint is not None and os.path.exists(checkpoint):
+            os.remove(checkpoint)
+        return result
+
+    for j in range(j0, kdim):
         u = op.matvec(V[j])
         n_mv += 1
         if U is None:
@@ -91,13 +139,18 @@ def svds(
         betas[j] = b
         V.append(w)
         logger.info("svds iter %d: alpha=%.6e beta=%.6e (%d matvecs)", j, a, b, n_mv)
+        if checkpoint is not None and checkpoint_every and (j + 1) % checkpoint_every == 0:
+            _save_lanczos_state(checkpoint, U, V, alphas, betas, j + 1, n_mv, fingerprint=fp)
 
         if j + 1 >= max(nsv, 2):
             ub, s, _ = np.linalg.svd(_bidiag(alphas[: j + 1], betas[:j]))
             res = betas[j] * np.abs(ub[-1, :nsv])
             if np.all(res[: min(nsv, len(s))] < tol * max(s[0], 1e-30)):
                 logger.info("svds converged at m=%d", j + 1)
-                return _finalize(U, V, alphas[: j + 1], betas[: j + 1], nsv, n_mv)
+                return done(_finalize(U, V, alphas[: j + 1], betas[: j + 1], nsv, n_mv))
+    # kdim spent short of tol: the checkpoint stays, to resume or inspect
+    if checkpoint is not None and U is not None:
+        _save_lanczos_state(checkpoint, U, V, alphas, betas, kdim, n_mv, fingerprint=fp)
     return _finalize(U, V, alphas, betas, nsv, n_mv)
 
 

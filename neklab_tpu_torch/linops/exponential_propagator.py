@@ -34,14 +34,18 @@ class ExponentialPropagator(LinearOperator):
         tau: float = 1.0,
         cfl: float = 0.5,
         dt: float | None = None,
+        precondition: bool = True,
         adjoint_tol_factor: float = 0.1,
     ):
         """The step is tau / ceil(tau / dt), with dt from the CFL target
         against the base flow unless given, so nsteps * dt == tau exactly.
-        The pressure solves use the two-level E preconditioner and the exact
-        neighbor-block E apply. Every solver of the matvec, pressure,
-        velocity and scalar, one per BDF order (on the card each with its
-        captured CG graph), is built here once for every matvec.
+        The pressure solves use the two-level E preconditioner
+        (`build_e_preconditioner(mesh)`) and, where it carries them, E's
+        exact neighbour blocks; with `precondition=False` the pressure CG is
+        unpreconditioned and applies the matrix-free E. Every solver of the
+        matvec, pressure, velocity and scalar, one per BDF order (on the
+        card each with its captured CG graph), is built here once for every
+        matvec.
 
         adjoint_tol_factor: the adjoint is the transpose of a forward
         program whose vtol and ptol are scaled by this factor (default 10x
@@ -62,7 +66,7 @@ class ExponentialPropagator(LinearOperator):
             dt = cfl_dt(mesh, base_u, cfl=clamp_cfl(cfl))
         self.dt, self.nsteps = horizon_steps(tau, dt)
         self.cfg = dataclasses.replace(cfg, flow=dataclasses.replace(cfg.flow, dt=self.dt))
-        self.pc_e = build_e_preconditioner(mesh)
+        self.pc_e = build_e_preconditioner(mesh) if precondition else None
         fc = self.cfg.flow
         self.vdiag, self.tdiags = ns.bdf3_diags(mesh, fc)
         orders = ns.bdf_orders(fc, self.nsteps)

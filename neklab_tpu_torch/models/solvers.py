@@ -115,6 +115,22 @@ class PCG:
             k += 1
 
 
+def pcg(
+    op: Callable,
+    b: torch.Tensor,
+    precond: Callable | None = None,
+    x0: torch.Tensor | None = None,
+    tol: float = 1e-8,
+    maxiter: int = 500,
+) -> torch.Tensor:
+    """Preconditioned CG on tensors -> x, the reference's functional `pcg`.
+
+    Stops at ||r||_2 <= tol (absolute, Euclidean), Nek's residual-based
+    rule. A solver that solves repeatedly builds one `PCG` instead (on the
+    card each call here captures a graph)."""
+    return pcg_info(op, b, precond, x0=x0, tol=tol, maxiter=maxiter)[0]
+
+
 def pcg_info(
     op: Callable,
     b: torch.Tensor,
@@ -160,23 +176,36 @@ def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
                   param=param, shift=shift)
 
 
+# bytes of one chunk of the diagonal probe: the plain 3-D chain holds about
+# ten intermediates of the probe's size at once, so ~1 GB at the peak
+_PROBE_BYTES = 96 * 2**20
+
+
 def local_diagonal(op_local: Callable, shape, dtype, ndim_pts: int, device=None) -> torch.Tensor:
     """Exact diagonal of an element-local operator by probing.
 
     op_local maps [*batch, pts..., nel] -> [*batch, pts..., nel] per element.
-    All npts within-element basis functions are probed at once, across all
-    elements, as one leading batch axis of size npts."""
+    The npts within-element basis functions are probed across all elements,
+    as one leading batch axis, in chunks of nodes whose probe stays under
+    _PROBE_BYTES (one chunk for every 2-D mesh the port meets; at box3d,
+    216 nodes of 1,728 elements, a few chunks in place of a 0.3-0.6 GB
+    probe). Each chunk reads the probed nodes' own entries, so the values
+    do not depend on the chunking."""
     pts_shape = tuple(shape[-ndim_pts - 1 : -1])
     nel = shape[-1]
     lead = tuple(shape[: -ndim_pts - 1])
-    npts = 1
-    for s in pts_shape:
-        npts *= s
+    npts = math.prod(pts_shape)
+    per_node = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    chunk = max(1, min(npts, _PROBE_BYTES // per_node))
     eye = torch.eye(npts, dtype=dtype, device=device)
-    e = eye.reshape((npts,) + (1,) * len(lead) + pts_shape + (1,))
-    e = e.expand((npts,) + tuple(shape)).contiguous()
-    out = op_local(e)
-    # value at the probed node, per element
-    vals = (out * e).reshape((npts,) + lead + (npts, nel)).sum(-2)  # [npts, lead..., nel]
-    vals = vals.movedim(0, -2)
+    vals = []
+    for j0 in range(0, npts, chunk):
+        m = min(chunk, npts - j0)
+        e = eye[j0:j0 + m].reshape((m,) + (1,) * len(lead) + pts_shape + (1,))
+        out = op_local(e.expand((m,) + tuple(shape)).contiguous())
+        # value at the probed node, per element: out[k, ..., j0 + k, :]
+        out = out.reshape((m,) + lead + (npts, nel))
+        idx = torch.arange(j0, j0 + m, device=device).reshape((m,) + (1,) * len(lead) + (1, 1))
+        vals.append(out.gather(-2, idx.expand((m,) + lead + (1, nel))).squeeze(-2))
+    vals = torch.cat(vals).movedim(0, -2)  # [lead..., npts, nel]
     return vals.reshape(lead + pts_shape + (nel,))

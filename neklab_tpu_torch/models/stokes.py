@@ -21,27 +21,32 @@ import torch
 
 from ..mesh.core import SemMesh
 from ..ops import sem
-from ..ops.tensor import grad_rst, grad_rst_t, interp_nd, interp_nd_t, tsum
+from ..ops.tensor import grad_rst, grad_rst_t, interp_nd, interp_nd_t
+
+
+def _rx(mesh: SemMesh, nlead: int) -> torch.Tensor:
+    """mesh.rx [ndim, ndim, pts..., nel] with `nlead` unit axes after the
+    first two, to meet a field's leading batch axes."""
+    rx = mesh.rx
+    return rx.reshape(rx.shape[:2] + (1,) * nlead + rx.shape[2:])
 
 
 def div_weak(mesh: SemMesh, u: torch.Tensor) -> torch.Tensor:
     """(q, div u) for all pressure test functions q: [ndim, *lead, ...] ->
-    [*lead, pts2..., nel]."""
-    divu = None
-    for k in range(mesh.ndim):
-        duk = grad_rst(u[k], mesh.d, mesh.ndim)
-        term = tsum(mesh.rx[a, k] * duk[a] for a in range(mesh.ndim))
-        divu = term if divu is None else divu + term
+    [*lead, pts2..., nel]. Every component is differentiated at once (ndim
+    contractions, not ndim^2) and the chain rule is one product and one sum
+    over (a, k): a handful of launches on the card in place of ~30 in 3-D."""
+    du = torch.stack(grad_rst(u, mesh.d, mesh.ndim))  # [a, k, *lead, pts..., nel]
+    divu = (_rx(mesh, u.dim() - 1 - mesh.bm1.dim()) * du).sum((0, 1))
     return interp_nd(mesh.j12, divu, mesh.ndim) * mesh.bm2
 
 
 def grad_weak_t(mesh: SemMesh, p: torch.Tensor) -> torch.Tensor:
-    """Exact transpose of div_weak: out_k = sum_a D_a^T (rx[a,k] I12^T (bm2 p))."""
+    """Exact transpose of div_weak: out_k = sum_a D_a^T (rx[a,k] I12^T (bm2 p)),
+    all k at once."""
     w = interp_nd_t(mesh.j12, p * mesh.bm2, mesh.ndim)
-    nd = mesh.ndim
-    return torch.stack(
-        [grad_rst_t(tuple(mesh.rx[a, k] * w for a in range(nd)), mesh.d, nd) for k in range(nd)]
-    )
+    f = _rx(mesh, p.dim() - mesh.bm2.dim()) * w  # [a, k, *lead, pts..., nel]
+    return grad_rst_t(tuple(f), mesh.d, mesh.ndim)
 
 
 def pressure_correct_velocity(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> torch.Tensor:

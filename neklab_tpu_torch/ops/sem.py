@@ -7,7 +7,8 @@ element boundaries is the separate `dssum`.
 
 `helmholtz_local` on a 2-D mesh goes through `ops.helmholtz_kernel`: the
 hand-written CUDA kernel for CUDA tensors, its plain torch twin for CPU
-tensors.
+tensors. On a 3-D mesh it is the plain torch chain on every device, as the
+reference's 3-D apply is plain XLA: no TPU kernel exists for it.
 """
 
 from __future__ import annotations
@@ -97,17 +98,17 @@ def helmholtz_local(mesh: SemMesh, u: torch.Tensor, h1, h2) -> torch.Tensor:
     """Unassembled Helmholtz operator h1 * A u + h2 * B u (Nek `axhelm`).
 
     2-D: the fused Helmholtz kernel (CUDA tensors) or its plain twin (CPU
-    tensors). 3-D: plain torch on the CPU only."""
+    tensors). 3-D: the plain torch chain (per-axis batched matmuls and
+    elementwise products) on any device. The map is symmetric per element,
+    so it runs through `tensor.linear` as its own transpose: a backward or a
+    forward-mode tangent applies the map again instead of recording its
+    ~30 intermediates, each of them a whole field."""
     if mesh.ndim == 2:
         g = mesh.g
         return helmholtz_kernel.helmholtz2d(
             u.contiguous(), mesh.d, g[0, 0], g[0, 1], g[1, 1], mesh.bm1, h1, h2
         )
-    if u.is_cuda:
-        raise NotImplementedError(
-            "3-D helmholtz_local on CUDA: the 3-D Helmholtz kernel and box3d are "
-            "a later ROADMAP item (port queue: 3-D Helmholtz path)")
-    return h1 * stiffness_local(mesh, u) + h2 * mesh.bm1 * u
+    return linear(lambda v: h1 * stiffness_local(mesh, v.contiguous()) + h2 * mesh.bm1 * v, u)
 
 
 def wgradp_t(mesh: SemMesh, v: torch.Tensor) -> torch.Tensor:

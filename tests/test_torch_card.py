@@ -528,3 +528,111 @@ def test_graphed_matrix_free_pressure_cg_matches_cpu(card, where, monkeypatch):
     assert stats[card] == stats["cpu"] and len(counts) == 2 and min(counts) > 3
     assert rel(out[card], out["cpu"].detach()) <= 1e-10
     assert rel(grads[card], grads["cpu"]) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the 3-D path: the plain chain on the card
+# ---------------------------------------------------------------------------
+
+WALLED3 = {f: "W" for f in ("x-", "x+", "y-", "y+", "z-", "z+")}
+BOX3D = ((12, 12, 12), ((0.0, 4.0), (-1.0, 1.0), (-1.0, 1.0)),
+         {"x-": "P", "x+": "P", "y-": "W", "y+": "W", "z-": "W", "z+": "W"})
+
+
+def _walled3(device, dtype=torch.float64):
+    return box_mesh((3, 2, 2), ((0.0, 1.5), (0.0, 1.0), (0.0, 1.0)), WALLED3, order=4,
+                    dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_helmholtz_local_3d_matches_cpu(card, dtype):
+    """3-D helmholtz_local on the card (the plain chain through
+    `tensor.linear`, never the 2-D kernel) against the same on CPU tensors,
+    with its backward."""
+    meshes = {dev: _walled3(dev, dtype) for dev in (card, "cpu")}
+    rng = np.random.default_rng(3)
+    u, g = (rng.standard_normal((3,) + tuple(meshes["cpu"].bm1.shape)) for _ in range(2))
+    before = helmholtz_kernel.launches(card)
+    out, grad = {}, {}
+    for dev, m in meshes.items():
+        x = torch.as_tensor(u, dtype=dtype, device=dev).requires_grad_(True)
+        out[dev] = sem.helmholtz_local(m, x, H1, H2)
+        (grad[dev],) = torch.autograd.grad(out[dev], x, torch.as_tensor(g, dtype=dtype,
+                                                                        device=dev))
+    assert helmholtz_kernel.launches(card) == before
+    assert rel(out[card].detach(), out["cpu"].detach()) <= TOL[dtype]
+    assert rel(grad[card], grad["cpu"]) <= TOL[dtype]
+
+
+def test_apply_3d_is_one_launch_and_captures(card):
+    """Each 3-D per-axis apply on a contiguous field is one kernel on the
+    card (the profiler's device events), and the 3-D Helmholtz apply
+    replays from a CUDA graph to the eager result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neklab_tpu_torch.ops.tensor import apply_r, apply_s, apply_t
+
+    d = torch.randn(6, 6, dtype=torch.float32, device=card)
+    u = torch.randn(3, 6, 6, 6, 1728, dtype=torch.float32, device=card)
+    for fn in (apply_r, apply_s, apply_t):
+        fn(d, u)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(d, u)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, (fn.__name__, [e.name for e in kernels])
+    mesh = _walled3(card, torch.float32)
+    x = torch.randn((3,) + tuple(mesh.bm1.shape), dtype=torch.float32, device=card)
+    eager = sem.helmholtz_local(mesh, x, H1, H2)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        sem.helmholtz_local(mesh, x, H1, H2)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sem.helmholtz_local(mesh, x, H1, H2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+def test_graphed_velocity_cg_3d_matches_cpu(card):
+    """The built-once 3-D velocity solver, its CG a graph replay of the
+    plain chain on the card, against the same on CPU tensors."""
+    meshes = {dev: _walled3(dev) for dev in (card, "cpu")}
+    solves = {dev: ns.make_helmholtz_solver(m, H1, H2, m.vmask,
+                                            ns.helmholtz_diag(m, H1, H2, m.vmask), 1e-11, 500)
+              for dev, m in meshes.items()}
+    rng = np.random.default_rng(4)
+    rhs = rng.standard_normal((3,) + tuple(meshes["cpu"].bm1.shape))
+    out, stats = {}, {}
+    for dev, solve in solves.items():
+        stats[dev] = {}
+        out[dev] = solve(torch.as_tensor(rhs, device=dev),
+                         torch.zeros(rhs.shape, dtype=torch.float64, device=dev),
+                         stats=stats[dev])
+    assert stats[card] == stats["cpu"] and stats["cpu"]["helmholtz"][0] > 3
+    assert rel(out[card], out["cpu"]) <= 1e-10
+
+
+def test_local_diagonal_chunked_at_box3d_shape(card, monkeypatch):
+    """The Jacobi diagonal at box3d's element shape (216 nodes, 1,728
+    elements), f64: probed in chunks under about 1 GB of device memory,
+    against the whole probe at once, which takes several GB."""
+    from neklab_tpu_torch.models import solvers
+
+    mesh = box_mesh(*BOX3D, order=5, dtype=torch.float64, device=card)
+    h2 = (11 / 6) / 2e-3
+    peaks = {}
+    for name, budget in (("chunked", solvers._PROBE_BYTES), ("whole", 2**40)):
+        monkeypatch.setattr(solvers, "_PROBE_BYTES", budget)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(card)
+        torch.cuda.reset_peak_memory_stats(card)
+        diag = ns.helmholtz_diag(mesh, 1e-3, h2, mesh.vmask)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated(card) - before, diag)
+    assert peaks["chunked"][0] <= 1.5e9 < peaks["whole"][0], {k: v[0] for k, v in peaks.items()}
+    assert rel(peaks["chunked"][1], peaks["whole"][1]) <= 1e-13

@@ -2,12 +2,15 @@
 (neklab_tpu_torch), f32.
 
     python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint,
-                                                 cyl50-nonlinear,otd500-otd]
+                                                 cyl50-nonlinear,otd500-otd,box3d]
                                         [--nsteps 20]
 
 Cases: `re7500` is the Poiseuille Re=7500 `medium` propagator of
 chip_smoke.py phases 6 and 7 (the main paths; dt as ExponentialPropagator
-derives it), `box2d` the box2d 131k propagator of phase 5. A case with
+derives it), `box2d` the box2d 131k propagator of phase 5, `box3d` the
+3-D duct of phase 14 (bench.py:312-345: 12 x 12 x 12 elements at order 5,
+1,119,744 velocity DOF, the default 3-D preconditioner at dt/(11/6)). A
+case with
 `-adjoint` profiles the same propagator's exact adjoint instead (an
 `AdjointPropagator` recorded over the window's `nsteps` steps, at
 ExponentialPropagator's adjoint tolerances, 10x tighter); its "step" is one
@@ -31,7 +34,11 @@ sustained protocol; the nonlinear and OTD cases from their own states):
     ms/step, this count does not move with the host's load), device-busy
     ms/step (summed kernel and copy times) and its share of the profiled
     wall time, device operations per step, and the top operations by device
-    time.
+    time;
+  * on a 3-D mesh, the device ms of one 3-D Helmholtz apply at the velocity
+    CG's shape (CUDA events, calls queued behind a sleep) and the share of
+    the step's device-busy time that one apply per velocity CG iteration
+    and one per solve's right-hand side take.
 One JSON line per case. Needs a CUDA card; imports no jax.
 """
 
@@ -48,6 +55,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CHANNEL = {"x-": "P", "x+": "P", "y-": "W", "y+": "W"}
+DUCT = {"x-": "P", "x+": "P", "y-": "W", "y+": "W", "z-": "W", "z+": "W"}
 # the runtime calls by which the host puts work on the card
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
 
@@ -69,17 +77,25 @@ def build_case(name, dev):
     elif name == "box2d":
         mesh = box_mesh((64, 16), lims, CHANNEL, order=7, dtype=torch.float32, device=dev)
         fc = FlowConfig(viscosity=1e-3, dt=2e-3, vtol=1e-5, ptol=1e-5, vmaxit=50, pmaxit=120)
+    elif name == "box3d":
+        mesh = box_mesh((12, 12, 12), ((0.0, 4.0), (-1.0, 1.0), (-1.0, 1.0)), DUCT, order=5,
+                        dtype=torch.float32, device=dev)
+        fc = FlowConfig(viscosity=1e-3, dt=2e-3, vtol=1e-5, ptol=1e-5, vmaxit=60, pmaxit=150)
     else:
         raise SystemExit(f"unknown case {name!r}")
     y = mesh.x[1]
-    base_u = torch.stack([1 - y**2, 0 * y])
+    if mesh.ndim == 3:
+        base_u = torch.stack([(1 - y**2) * (1 - mesh.x[2] ** 2), 0 * y, 0 * y])
+    else:
+        base_u = torch.stack([1 - y**2, 0 * y])
     if name == "re7500":  # the main path's propagator: dt from the CFL target
         op = ExponentialPropagator(mesh, LinConfig(flow=fc), base_u, tau=0.5, cfl=0.5)
         return mesh, op.cfg, op.cfg_adj, base_u, op.pc_e, op.vdiag, op.psolves, op.vsolves
-    # box2d: bench.py's fixed dt, set up as ExponentialPropagator would
+    # box2d, box3d: bench.py's fixed dt, set up as ExponentialPropagator would
+    # (box3d's preconditioner at bench.py's dt/(11/6))
     cfg = LinConfig(flow=fc)
     cfg_adj = LinConfig(flow=dataclasses.replace(fc, vtol=0.1 * fc.vtol, ptol=0.1 * fc.ptol))
-    pc = build_e_preconditioner(mesh)
+    pc = build_e_preconditioner(mesh, fc.dt / (11 / 6) if mesh.ndim == 3 else 1.0)
     vdiag = helmholtz_diag(mesh, fc.viscosity, (11 / 6) / fc.dt, mesh.vmask)
     orders = ns.bdf_orders(fc, 3)
     return (mesh, cfg, cfg_adj, base_u, pc, vdiag, ns.pressure_solvers(mesh, fc, orders, pc),
@@ -187,7 +203,7 @@ def profile_case(name, dev, nsteps):
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        u = mesh.vmask * sem.dsavg(mesh, torch.randn((2,) + tuple(mesh.bm1.shape),
+        u = mesh.vmask * sem.dsavg(mesh, torch.randn((mesh.ndim,) + tuple(mesh.bm1.shape),
                                                      generator=gen, dtype=mesh.dtype, device=dev))
         u = u / sem.mass_dot(mesh, u, u).sqrt()
     u = run(u)  # warm-up
@@ -214,6 +230,12 @@ def profile_case(name, dev, nsteps):
         c, s = by.get(e.name[:60], (0, 0.0))
         by[e.name[:60]] = (c + 1, s + e.device_time)
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:12]
+    apply = {}
+    if mesh.ndim == 3:
+        ms = apply_device_ms(mesh, cfg.flow)
+        per_step = len(stats["helmholtz"]) / (3 * nsteps) + sum(stats["helmholtz"]) / (3 * nsteps)
+        apply = {"helmholtz3d_apply_device_ms": ms, "helmholtz3d_applies_per_step": per_step,
+                 "helmholtz3d_share_of_device_busy": per_step * ms / (dev_us / 1e3 / nsteps)}
     return {
         "case": name, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": dt,
         "nsteps": nsteps, "tape_bytes": tape_bytes,
@@ -227,7 +249,29 @@ def profile_case(name, dev, nsteps):
         "device_busy_share_of_profiled": dev_us / 1e6 / pwall,
         "device_ops_per_step": len(ev) / nsteps,
         "top": [[k, c / nsteps, s / 1e3 / nsteps] for k, (c, s) in top],
+        **apply,
     }
+
+
+def apply_device_ms(mesh, fc, calls: int = 50) -> float:
+    """Device ms of one `helmholtz_local` at the velocity CG's shape [ndim,
+    pts..., nel]: `calls` calls queued behind a sleep kernel, so that CUDA
+    events time the device and not the host's launches."""
+    from neklab_tpu_torch.ops import sem
+
+    u = torch.randn((mesh.ndim,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=mesh.device)
+    h2 = (11 / 6) / fc.dt
+    for _ in range(3):
+        sem.helmholtz_local(mesh, u, fc.viscosity, h2)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(500_000_000)
+    start.record()
+    for _ in range(calls):
+        sem.helmholtz_local(mesh, u, fc.viscosity, h2)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def main():
