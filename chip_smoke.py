@@ -71,8 +71,8 @@ Phases:
   11 otd     examples/poiseuille_otd.py's Re=500 run, f32, 17,670 steps:
              eig(Lr) vs the analytic shear rates
   12 bfs     examples/bfs_transient_growth.py `medium`, f32: 2500 spin-up
-             steps, the Lanczos SVD at tau = 9; sigma_1 > 1, the triplet
-             identity, power iterations on M*M
+             steps, the Lanczos SVD at tau = 4.5 (the example's 9 cut);
+             sigma_1 > 1, the triplet identity, 12 power iterations on M*M
   13 box21k  the 21,609-element walled box at order 3: f64, the default
              preconditioner's RCB-aggregated tier and E-CG < 300 iterations
              to 1e-6; f32, 20 linearized steps with `compress` off and on
@@ -84,6 +84,14 @@ Phases:
              order 6, f64: the two leading eigenvalues vs the analytic
              shear modes -nu (pi/2)^2 (double, reported once) and -nu pi^2,
              the driver's files
+  16 sharded element-partitioned runs on the one card (this script with
+             `--rank JOB RANK SIZE DIR` is one rank): one NCCL rank, box2d
+             131k f32, 20 steps with graphed CGs vs unsplit; four gloo ranks,
+             box2d 131k and box3d, f64, propagate and its adjoint vs one
+             process and the B-adjoint identity; four gloo ranks, the
+             eigensolve of tests/test_sharding.py:199-245 (dt 0.4, kdim 24)
+             vs one process; collectives per step, bytes, ms per all-reduce,
+             each rank's peak device memory beside one process's
 
 After phases 0-2 and 5, which time the card alone, the main process starts
 one process per group of SIDE (this script with `--side oracle,resolvent`,
@@ -234,11 +242,13 @@ def kernel_phase(dev):
     CG iteration, one of n*n the Jacobi-diagonal probe, helmholtz_diag),
     each on its phase's mesh and coefficients, and at the edges of its
     tiling: nel not a multiple of the tile (15, 121), n = 2 and n = 12, a
-    batch of 1 and of 81. Times it against the plain chain at the CG shapes
-    of the direct path (phase 6), of the cylinder (phase 8) and of box2d,
-    and alone at their probe shapes."""
+    batch of 1 and of 81, and on each of phase 16's four ranks' blocks of
+    box2d. Times it against the plain chain at the CG shapes of the direct
+    path (phase 6), of the cylinder (phase 8), of box2d and of a rank's
+    block of it, and alone at their probe shapes."""
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.parallel import Partition, shard_sem_mesh
 
     t0 = time.time()
     re7500 = channel(dev, torch.float32, (12, 10), 8)  # phase 6, the main path
@@ -286,6 +296,13 @@ def kernel_phase(dev):
     for m in (box2d, box2d64):
         cases += [(f"box2d_131k/{str(m.dtype)[6:]}/{lead}", mesh_args(m, lead))
                   for lead in ((), (2,), (64,))]
+    # phase 16's ranks: each of 4 gloo ranks applies it to its own 256
+    # elements of box2d 131k in f64 (a velocity CG iteration, the probe)
+    blocks = [shard_sem_mesh(box2d64, Partition(rank=r, size=4, device=dev, backend="gloo"))
+              for r in range(4)]
+    for rank, m in enumerate(blocks):
+        cases += [(f"box2d_131k/f64/rank{rank}of4/{lead}", mesh_args(m, lead))
+                  for lead in ((2,), (64,))]
     # nel = 15: the ragged tile, the deformation g01 != 0
     deformed = box_mesh((5, 3), ((0.0, 2.0), (-1.0, 1.0)), WALLED, order=5, deform=wavy,
                         dtype=torch.float64, device=dev)
@@ -314,7 +331,7 @@ def kernel_phase(dev):
     # resolvent sweep (f32) and the periodic orbit (f64)
     timed = [(m, None) for m in (re7500, cyl, box2d)]
     timed += [slice_meshes["resolvent", torch.float32], slice_meshes["upo", torch.float64]]
-    timed += [(bfs, (1 / 500, 1e-2)), (big, (1e-3, 5e-4))]
+    timed += [(bfs, (1 / 500, 1e-2)), (big, (1e-3, 5e-4)), (blocks[0], None)]
     for m, nu_dt in timed:
         args = mesh_args(m, (2,), nu_dt)
         key = f"{list(args[0].shape)} {SHORT[m.dtype]}"
@@ -1149,8 +1166,10 @@ UPO_F = 2.2165970612221577e-07  # UPO_r05.json: the reference's |F| at this orbi
 # room for phase 15 (the phase asserts |mu| to 1e-4 and 1e-3), and a Krylov
 # dimension of 48 in place of the example's 32, so that the solve can stop
 # at its convergence check without a restart (at 1e-7 it took 52 matvecs
-# with the restart at 32 and 53 at 48, PERF.md section 6)
-UPO_KDIM, UPO_TOL = 48, 1e-6
+# with the restart at 32 and 53 at 48, PERF.md section 6). The check runs
+# every UPO_CHECK columns: a monodromy matvec is 884 steps, and a check
+# every 8 (eigs' default) ran up to 7 of them past convergence
+UPO_KDIM, UPO_TOL, UPO_CHECK = 48, 1e-6, 2
 
 
 def upo_phase(dev, kdim: int = UPO_KDIM) -> dict:
@@ -1196,7 +1215,8 @@ def upo_phase(dev, kdim: int = UPO_KDIM) -> dict:
     hk.reset_launches(dev)
     t1 = time.time()
     mono = Counted(MonodromyOperator(system, nres.x), dev)
-    eres = eigs(mono, flow_vector_space(mesh, 0), nev=3, kdim=kdim, tol=UPO_TOL, maxiter=4)
+    eres = eigs(mono, flow_vector_space(mesh, 0), nev=3, kdim=kdim, tol=UPO_TOL, maxiter=4,
+                check_every=UPO_CHECK)
     runs["floquet"] = hk.launches(dev)
     seconds["floquet"] = time.time() - t1
     mus = eres.eigvals
@@ -1485,6 +1505,10 @@ def bfs_medium(dev, dtype=torch.float32):
 # the example asks for nsv 4 (PERF.md section 4); its Lanczos stops on
 # convergence, at m = 10 for nsv 2 (PERF.md section 6), well inside kdim 32
 BFS_KDIM, BFS_NSV = 32, 2
+# the horizon: the example's tau = 9 (900 steps per matvec) cut to 4.5 (450
+# steps) to make room for phase 16; the oracles hold there as at 9 (PERF.md
+# section 6)
+BFS_TAU = 4.5
 
 
 def bfs_phase(dev, kdim: int = BFS_KDIM, nsv: int = BFS_NSV) -> dict:
@@ -1493,7 +1517,7 @@ def bfs_phase(dev, kdim: int = BFS_KDIM, nsv: int = BFS_NSV) -> dict:
     user entry points: `bfs_mesh` (62 elements, order 6) ->
     `build_e_preconditioner` -> `advance` (Re 500, dt 1e-2, 2500 spin-up
     steps from the parabolic inflow, the inflow as the lift) ->
-    `ExponentialPropagator` (tau = 9, 900 steps) ->
+    `ExponentialPropagator` (tau = BFS_TAU, 450 steps) ->
     `transient_growth_analysis_fixed_point` (kdim, nsv, tol 1e-6). Asserts
     tests/test_bfs.py's oracles: sigma_1 > 1 and sigma_1 >= sigma_2 > 0; the
     triplet identity ||M v1 - sigma1 u1||_B <= 1e-3 sigma_1 (phase 7's f32
@@ -1511,7 +1535,7 @@ def bfs_phase(dev, kdim: int = BFS_KDIM, nsv: int = BFS_NSV) -> dict:
     t0 = time.time()
     runs, seconds = {}, {}
     mesh = bfs_medium(dev)
-    dt, nspin, tau = 1e-2, 2500, 9.0
+    dt, nspin, tau = 1e-2, 2500, BFS_TAU
     fc = FlowConfig(viscosity=1 / 500, dt=dt, vtol=1e-6, ptol=1e-6)
     ub = bfs_inflow(mesh)
     hk.reset_launches(dev)
@@ -1954,6 +1978,441 @@ def channel3d_phase(dev):
     assert np.all(res.residuals < CHANNEL3D_TOL), res.residuals
 
 
+# ---------------------------------------------------------------------------
+# phase 16: element-partitioned runs on the one card
+# ---------------------------------------------------------------------------
+
+# the eigensolve of tests/test_sharding.py:199-245 at dt = tau = 0.4 in
+# place of its 2e-3: one step per matvec, not 200 (PERF.md section 4):
+# four gloo ranks sharing the card take ~3.5 ms per all-reduce, ~240 a step
+SHARDED_EIGS_DT = 0.4
+# and its Krylov dimension 16 -> 24: at that dt the second pair reaches the
+# case's 1e-7 inside 8 cycles of kdim 24 (80 matvecs), not of kdim 16
+SHARDED_EIGS_KDIM = 24
+SHARDED_F64 = dict(viscosity=1e-3, dt=2e-3, vtol=1e-10, ptol=1e-10, vmaxit=400, pmaxit=800)
+SHARDED_NSTEPS = 3  # the BDF1/2 ramp and one BDF3 step
+
+
+def sharded_box2d(dev, dtype):
+    return channel(dev, dtype, (64, 16), 7)
+
+
+def sharded_mesh(case: str, dev, dtype):
+    """The global mesh of a phase-16 case: box2d 131k, box3d, or the
+    eigensolve's box (tests/test_sharding.py:28-38)."""
+    if case == "box2d":
+        return sharded_box2d(dev, dtype)
+    if case == "box3d":
+        return box3d_mesh(dev, dtype)
+    return channel(dev, dtype, (8, 2), 4)
+
+
+def sharded_base(mesh):
+    y = mesh.x[1]
+    if mesh.ndim == 3:
+        z = mesh.x[2]
+        return torch.stack([(1 - y**2) * (1 - z**2), 0 * y, 0 * y])
+    return torch.stack([1 - y**2, 0 * y])
+
+
+def _c0_pair(mesh, seed):
+    """Two C0, velocity-masked fields of the mesh, from a CPU generator."""
+    from neklab_tpu_torch.ops import sem
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    draw = lambda: torch.randn((mesh.ndim,) + tuple(mesh.bm1.shape), generator=gen,
+                               dtype=mesh.dtype).to(mesh.device)
+    return [mesh.vmask * sem.dsavg(mesh, draw()) for _ in range(2)]
+
+
+def _log(part) -> dict:
+    return {"calls": part.log.calls, "bytes": part.log.bytes,
+            "largest_numel": max(part.log.by_numel, default=0)}
+
+
+def _allreduce_ms(dev, numel: int, reps: int = 200) -> float:
+    """Host ms per gloo all-reduce of `numel` float64 on the card, the ranks
+    doing nothing else (synchronized)."""
+    import torch.distributed as dist
+
+    buf = torch.zeros(max(numel, 1), dtype=torch.float64, device=dev)
+    for _ in range(10):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize(dev)
+    t1 = time.time()
+    for _ in range(reps):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize(dev)
+    return 1e3 * (time.time() - t1) / reps
+
+
+def rank_propagate(part, dev, case: str, work: str) -> dict:
+    """A gloo rank of phase 16 (b, c): propagate and its adjoint in f64 on
+    the rank's block of box2d or box3d."""
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, make_adjoint_propagator, propagate
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.parallel import gather_field, shard_field, shard_sem_mesh
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    t1 = time.time()
+    mesh = shard_sem_mesh(sharded_mesh(case, "cpu", torch.float64), part)
+    with np.load(os.path.join(work, "in.npz")) as z:
+        u0, v0 = (shard_field(z[f"{k}_{case}"], part) for k in ("u0", "v0"))
+    cfg = LinConfig(flow=FlowConfig(**SHARDED_F64))
+    base = sharded_base(mesh)
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+    pc = build_e_preconditioner(mesh, cfg.flow.dt / (11 / 6))
+    orders = ns.bdf_orders(cfg.flow, SHARDED_NSTEPS)
+    solvers = dict(psolves=ns.pressure_solvers(mesh, cfg.flow, orders, pc),
+                   vsolves=ns.velocity_solvers(mesh, cfg.flow, orders,
+                                               *ns.bdf3_diags(mesh, cfg.flow)))
+    setup_s = time.time() - t1
+    part.log.reset()
+    hk.reset_launches(dev)
+    stats = {}
+    torch.cuda.synchronize(dev)
+    t1 = time.time()
+    mu, _ = propagate(mesh, cfg, base, th, u0, th, SHARDED_NSTEPS, pc_e=pc, stats=stats,
+                      **solvers)
+    torch.cuda.synchronize(dev)
+    s_dir = time.time() - t1
+    log_dir = _log(part)
+    runs = hk.launches(dev)
+    adj = make_adjoint_propagator(mesh, cfg, base, th, SHARDED_NSTEPS, pc_e=pc, **solvers)
+    t1 = time.time()
+    av, _ = adj(v0, th)
+    torch.cuda.synchronize(dev)
+    s_adj = time.time() - t1
+    ident = torch.stack([sem.mass_dot(mesh, mu, v0), sem.mass_dot(mesh, u0, av)])
+    stats_out = {"peak_bytes": torch.cuda.max_memory_allocated(dev) - start,
+                 "setup_s": setup_s, "ms_per_step": 1e3 * s_dir / SHARDED_NSTEPS,
+                 "adjoint_ms_per_step": 1e3 * s_adj / SHARDED_NSTEPS,
+                 "collectives_per_step": log_dir["calls"] / SHARDED_NSTEPS,
+                 "bytes_per_collective": log_dir["bytes"] / max(log_dir["calls"], 1),
+                 "largest_numel": log_dir["largest_numel"], "nel": mesh.nel,
+                 "cg_iters_per_step": {k: statistics.mean(v) for k, v in stats.items()},
+                 "kernel_runs": runs,
+                 "graphed": [solvers["psolves"][o].cg.graphed for o in orders]
+                 + [solvers["vsolves"][o][0].cg.graphed for o in orders],
+                 "ms_per_allreduce_alone": {
+                     "8 B": _allreduce_ms(dev, 1),
+                     f"{8 * mesh.xch_n * mesh.ndim} B": _allreduce_ms(dev, mesh.xch_n * mesh.ndim)}}
+    return {"mu": gather_field(mu, part), "adj": gather_field(av, part),
+            "identity": ident, "stats": stats_out}
+
+
+def rank_eigs(part, dev, work: str) -> dict:
+    """A gloo rank of phase 16 (d): the eigensolve through the driver, rank 0
+    writing its files to work/out."""
+    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig,
+                                  flow_vector_space, linear_stability_analysis_fixed_point)
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.parallel import shard_sem_mesh
+
+    mesh = shard_sem_mesh(sharded_mesh("eigs", "cpu", torch.float64), part)
+    y = mesh.x[1]
+    fc = FlowConfig(viscosity=0.05, dt=SHARDED_EIGS_DT, vtol=1e-11, ptol=1e-11, vmaxit=60,
+                    pmaxit=120)
+    prop = ExponentialPropagator(mesh, LinConfig(flow=fc), torch.stack([0.3 * (1 - y**2), 0 * y]),
+                                 tau=0.4, dt=fc.dt)
+    part.log.reset()
+    hk.reset_launches(dev)
+    res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
+                                                kdim=SHARDED_EIGS_KDIM, nev=2, tol=1e-7,
+                                                maxiter=8, seed=3,
+                                                outdir=os.path.join(work, "out"))
+    calls = part.log.calls
+    steps = res.n_matvec * prop.nsteps
+    return {"eigvals": res.multipliers, "residuals": res.residuals,
+            "stats": {"n_matvec": res.n_matvec, "seconds": res.elapsed,
+                      "ms_per_step": 1e3 * res.elapsed / steps,
+                      "collectives_per_step": calls / steps,
+                      "kernel_runs": hk.launches(dev)}}
+
+
+def rank_nccl(part, dev, work: str) -> dict:
+    """The one NCCL rank of phase 16 (a): box2d 131k in f32, 20 linearized
+    steps through shard_sem_mesh -> propagate with graphed CGs, in turns
+    with the same steps unsplit in this process."""
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, propagate
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.parallel import shard_sem_mesh
+
+    gm = sharded_box2d("cpu", torch.float32)
+    fc = ns.FlowConfig(viscosity=1e-3, dt=2e-3, vtol=1e-5, ptol=1e-5, vmaxit=50, pmaxit=120)
+    cfg, nsteps = LinConfig(flow=fc), 20
+    runs = {}
+    # the unsplit preconditioner is built first, on the card, into the
+    # cache; the split one loads it on the host
+    for name, mesh in (("one", gm.to(dev)), ("split", shard_sem_mesh(gm, part))):
+        pc = build_e_preconditioner(mesh, fc.dt / (11 / 6))
+        orders = ns.bdf_orders(fc, nsteps)
+        psolves = ns.pressure_solvers(mesh, fc, orders, pc)
+        vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
+        base = sharded_base(mesh)
+        th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+        u0 = _c0_pair(gm, 1)[0].to(dev)
+        graphed = [psolves[o].cg.graphed for o in orders] + [vsolves[o][0].cg.graphed
+                                                             for o in orders]
+        prop = lambda u, m=mesh, pc=pc, ps=psolves, vs=vsolves, b=base, th=th, s=None: propagate(
+            m, cfg, b, th, u, th, nsteps, pc_e=pc, psolves=ps, vsolves=vs, stats=s)[0]
+        runs[name] = dict(prop=prop, u0=u0, graphed=graphed)
+    out, times = {}, {"split": [], "one": []}
+    for order in ("split", "one", "one", "split", "split", "one"):  # in turns
+        r = runs[order]
+        part.log.reset()
+        hk.reset_launches(dev)
+        stats = {}
+        torch.cuda.synchronize(dev)
+        t1 = time.time()
+        mu = r["prop"](r["u0"], s=stats)
+        torch.cuda.synchronize(dev)
+        times[order].append(1e3 * (time.time() - t1) / nsteps)
+        out[order] = {"mu": mu, "kernel_runs": hk.launches(dev),
+                      "collectives_per_step": part.log.calls / nsteps,
+                      "bytes_per_collective": part.log.bytes / max(part.log.calls, 1),
+                      "cg_iters_per_step": {k: statistics.mean(v) for k, v in stats.items()}}
+    return {"mu_split": out["split"].pop("mu"), "mu_one": out["one"].pop("mu"),
+            "stats": {"graphed_split": runs["split"]["graphed"],
+                      "graphed_one": runs["one"]["graphed"], "ms_per_step": times,
+                      "split": out["split"], "one": out["one"]}}
+
+
+def rank_main(argv) -> None:
+    """`chip_smoke.py --rank JOB RANK SIZE WORKDIR`: one rank of phase 16,
+    JOB "nccl" (16a) or "gloo" (16b, c and d, one after another in the same
+    ranks). Rank 0 writes each case's gathered fields to
+    WORKDIR/out_<case>.npz; every rank writes its numbers to
+    WORKDIR/stats<rank>.json."""
+    job, rank, size, work = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    import torch.distributed as dist
+
+    from neklab_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    part = init_distributed(backend="nccl" if job == "nccl" else "gloo",
+                            init_method="file://" + os.path.join(work, "rdv"), world_size=size,
+                            rank=rank, device=dev, timeout=600)
+    try:
+        if job == "nccl":
+            outs = {"nccl": rank_nccl(part, dev, work)}
+        else:
+            outs = {case: rank_propagate(part, dev, case, work) for case in ("box2d", "box3d")}
+            outs["eigs"] = rank_eigs(part, dev, work)
+        stats = {case: out.pop("stats") for case, out in outs.items()}
+        with open(os.path.join(work, f"stats{rank}.json"), "w") as f:
+            json.dump(stats, f, default=float)
+        for case, out in outs.items():
+            if rank == 0:
+                np.savez(os.path.join(work, f"out_{case}.npz"),
+                         **{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                            for k, v in out.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def start_ranks(job: str, size: int, inputs: dict | None = None):
+    """Starts the ranks of a phase-16 job in a fresh .scratch/sharded_<job>."""
+    import shutil
+
+    work = os.path.join(ROOT, ".scratch", f"sharded_{job}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if inputs is not None:
+        np.savez(os.path.join(work, "in.npz"), **inputs)
+    log = open(os.path.join(work, "ranks.log"), "w+")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", job, str(r),
+                               str(size), work], stdout=log, stderr=subprocess.STDOUT)
+             for r in range(size)]
+    return procs, work, log
+
+
+def finish_ranks(started, timeout: float):
+    """Waits for the ranks (killing all at the limit); any failing rank
+    fails the phase. -> ({case: rank 0's out_<case>.npz}, every rank's
+    stats {case: numbers})."""
+    procs, work, log = started
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"phase 16 ranks of {os.path.basename(work)} failed: exit {codes}")
+    out = {}
+    for name in os.listdir(work):
+        if name.startswith("out_"):
+            with np.load(os.path.join(work, name)) as z:
+                out[name[4:-4]] = {k: z[k] for k in z.files}
+    stats = []
+    for r in range(len(procs)):
+        with open(os.path.join(work, f"stats{r}.json")) as f:
+            stats.append(json.load(f))
+    return out, stats
+
+
+def sharded_phase(dev) -> dict:
+    """Phase 16: the port's element-partitioned path on the one card.
+    (a) a one-rank NCCL group: box2d 131k, f32, 20 linearized steps through
+    init_distributed -> shard_sem_mesh -> propagate with graphed CGs (every
+    CG `graphed`, asserted), in turns with the same steps unsplit; (b, c)
+    four gloo ranks sharing the card (their all-reduces staged through the
+    host, their CGs eager): propagate and its adjoint on box2d 131k and on
+    box3d (bench.py:312-345) in f64 with 1e-10 solves over 3 steps, against
+    one process on the card (<= 1e-7 relative) with the B-adjoint identity;
+    (d) four gloo ranks: the eigensolve of tests/test_sharding.py:199-245
+    (dt cut to SHARDED_EIGS_DT, kdim SHARDED_EIGS_KDIM) through
+    linear_stability_analysis_fixed_point against one process, |dmu| <
+    1e-6, rank 0 alone writing the files. Prints ms/step, collectives per
+    step, bytes per collective, ms per gloo all-reduce on CUDA tensors, and
+    the kernel's runs in every rank beside one process's. Returns the
+    kernel runs of the split main paths (summed over the ranks)."""
+    import shutil
+
+    t0 = time.time()
+    numbers, runs = {}, {}
+    # this phase's preconditioners, built once here (or by the NCCL rank's
+    # first build) and loaded by its ranks from a cache of its own
+    cache = os.path.join(ROOT, ".scratch", "sharded_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    saved = {k: os.environ.get(k) for k in ("NEKLAB_PRECOND_CACHE", "NEKLAB_MESH_CACHE")}
+    os.environ.update(NEKLAB_PRECOND_CACHE="1", NEKLAB_MESH_CACHE=cache)
+    try:
+        _sharded_cases(dev, numbers, runs)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    phase("sharded", t0, **numbers)
+    return runs
+
+
+def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
+    """Phase 16's four cases, filling numbers (printed) and runs (the
+    kernel runs of the split main paths)."""
+    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig,
+                                  flow_vector_space, linear_stability_analysis_fixed_point)
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import make_adjoint_propagator, propagate
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+
+    started = start_ranks("nccl", 1)
+    outs, stats = finish_ranks(started, 400)
+    out, st = outs["nccl"], stats[0]["nccl"]
+    err = rel(torch.as_tensor(out["mu_split"]), torch.as_tensor(out["mu_one"]))
+    numbers["a_nccl_box2d_f32"] = dict(st, rel_err=err)
+    assert all(st["graphed_split"]) and all(st["graphed_one"]), st
+    assert err <= 1e-4, err  # f32, 1e-5 solves: the two differ in summation order
+    assert st["split"]["kernel_runs"] > 0
+    runs["sharded NCCL box2d, 1 rank (phase 16a)"] = st["split"]["kernel_runs"]
+
+    # (b, c, d): one set of four gloo ranks runs the three cases in turn;
+    # this process builds the preconditioners first (the ranks load them)
+    # and runs the same cases in one process meanwhile
+    cfg = LinConfig(flow=FlowConfig(**SHARDED_F64))
+    meshes, inputs = {}, {}
+    for case in ("box2d", "box3d"):
+        meshes[case] = sharded_mesh(case, dev, torch.float64)
+        build_e_preconditioner(meshes[case], cfg.flow.dt / (11 / 6))  # into the cache
+        u0, v0 = _c0_pair(sharded_mesh(case, "cpu", torch.float64), 2)
+        inputs[f"u0_{case}"], inputs[f"v0_{case}"] = u0.numpy(), v0.numpy()
+    started = start_ranks("gloo", 4, inputs)
+    one = {}
+    for case, mesh in meshes.items():
+        # the peak above what this process held before the case, its mesh
+        # counted as the ranks count theirs
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev) - sum(
+            v.numel() * v.element_size() for v in vars(mesh).values()
+            if isinstance(v, torch.Tensor) and v.is_cuda)
+        pc = build_e_preconditioner(mesh, cfg.flow.dt / (11 / 6))
+        u0, v0 = (torch.as_tensor(inputs[f"{k}_{case}"], device=dev) for k in ("u0", "v0"))
+        base = sharded_base(mesh)
+        th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+        orders = ns.bdf_orders(cfg.flow, SHARDED_NSTEPS)  # built before the count, as the ranks do
+        solvers = dict(psolves=ns.pressure_solvers(mesh, cfg.flow, orders, pc),
+                       vsolves=ns.velocity_solvers(mesh, cfg.flow, orders,
+                                                   *ns.bdf3_diags(mesh, cfg.flow)))
+        hk.reset_launches(dev)
+        t1 = time.time()
+        mu, _ = propagate(mesh, cfg, base, th, u0, th, SHARDED_NSTEPS, pc_e=pc, **solvers)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.time() - t1) / SHARDED_NSTEPS
+        one_runs = hk.launches(dev)
+        av, _ = make_adjoint_propagator(mesh, cfg, base, th, SHARDED_NSTEPS, pc_e=pc,
+                                        **solvers)(v0, th)
+        torch.cuda.synchronize(dev)
+        one[case] = mu, av, ms, one_runs, torch.cuda.max_memory_allocated(dev) - start
+    del meshes, pc
+    mesh = sharded_mesh("eigs", dev, torch.float64)
+    y = mesh.x[1]
+    fc = FlowConfig(viscosity=0.05, dt=SHARDED_EIGS_DT, vtol=1e-11, ptol=1e-11, vmaxit=60,
+                    pmaxit=120)
+    prop = ExponentialPropagator(mesh, LinConfig(flow=fc), torch.stack([0.3 * (1 - y**2), 0 * y]),
+                                 tau=0.4, dt=fc.dt)
+    hk.reset_launches(dev)
+    ref = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
+                                                kdim=SHARDED_EIGS_KDIM, nev=2, tol=1e-7,
+                                                maxiter=8, seed=3)
+    eig_runs = hk.launches(dev)
+    outs, stats = finish_ranks(started, 900)
+
+    for case, (mu, av, ms, one_runs, peak) in one.items():
+        out, st = outs[case], [s[case] for s in stats]
+        errs = {"mu": rel(torch.as_tensor(out["mu"], device=dev), mu),
+                "adjoint": rel(torch.as_tensor(out["adj"], device=dev), av)}
+        lhs, rhs = (float(v) for v in out["identity"])
+        numbers[f"{'b' if case == 'box2d' else 'c'}_gloo4_{case}_f64"] = dict(
+            rel_err=errs, identity=[lhs, rhs, abs(lhs - rhs) / abs(lhs)],
+            one_process_ms_per_step=ms, one_process_kernel_runs=one_runs,
+            one_process_peak_bytes=peak, peak_bytes_by_rank=[s["peak_bytes"] for s in st],
+            kernel_runs_by_rank=[s["kernel_runs"] for s in st],
+            kernel_runs_summed=sum(s["kernel_runs"] for s in st), ranks=st)
+        assert max(errs.values()) <= 1e-7, errs
+        assert abs(lhs - rhs) <= 1e-7 * abs(lhs), (lhs, rhs)
+        if case == "box2d":
+            assert all(s["kernel_runs"] > 0 for s in st), st
+            runs["sharded gloo box2d, 4 ranks (phase 16b)"] = sum(s["kernel_runs"] for s in st)
+
+    out, st = outs["eigs"], [s["eigs"] for s in stats]
+    dmu = np.abs(np.sort_complex(out["eigvals"]) - np.sort_complex(ref.multipliers)).max()
+    files = sorted(os.listdir(os.path.join(ROOT, ".scratch", "sharded_gloo", "out")))
+    numbers["d_gloo4_eigs_f64"] = dict(
+        eigvals=[[v.real, v.imag] for v in out["eigvals"]], dmu=dmu,
+        residuals=out["residuals"].tolist(), one_process_n_matvec=ref.n_matvec,
+        one_process_seconds=ref.elapsed, one_process_kernel_runs=eig_runs,
+        kernel_runs_summed=sum(s["kernel_runs"] for s in st), files=files, ranks=st)
+    assert dmu < 1e-6 and out["residuals"].max() < 1e-7, (dmu, out["residuals"])
+    assert files == ["dir_eigenspectrum.npy", "dirmode0.f00001.npz", "dirmode0.f00002.npz",
+                     "timers.log"], files
+    runs["sharded gloo eigensolve, 4 ranks (phase 16d)"] = sum(s["kernel_runs"] for s in st)
+
+
 def eigs_depth(dev, case: str, settings: list[str]) -> None:
     """`--eigs-depth channel3d|re7500 kdim:tol:maxiter ...`: the matvecs and
     seconds of phase 15's or phase 6's eigensolve at other Krylov
@@ -2008,9 +2467,11 @@ def eigs_depth(dev, case: str, settings: list[str]) -> None:
 # those phases one after another) and runs MAIN_THEN beside them. Phase 15
 # is bound by the device and runs at its own speed only alone, so it comes
 # last in the main process, where most of it runs after the groups have
-# ended (PERF.md section 6)
+# ended (PERF.md section 6). The groups are packed to end together (phase
+# 10 alone is the longest); phase 16 runs first in its group, so that its
+# four ranks do not share the card with phase 15
 MAIN_FIRST = ("kernel", "box2d")
-SIDE = ("oracle,resolvent,box21k,box3d", "otd,cylinder", "upo", "bfs")
+SIDE = ("upo", "oracle,resolvent", "otd,cylinder", "sharded,bfs,box21k,box3d")
 MAIN_THEN = ("parity", "nonlinear", "parity_r", "parity_u", "parity_3d", "re7500", "growth",
              "channel3d")
 
@@ -2064,6 +2525,8 @@ def run_phase(name: str, dev, state: dict):
         box3d_phase(dev)
     elif name == "channel3d":
         channel3d_phase(dev)
+    elif name == "sharded":
+        return sharded_phase(dev)
     else:
         raise SystemExit(f"chip_smoke: no phase {name!r}")
     return None
@@ -2074,6 +2537,9 @@ def main() -> None:
     # is the number of cards this run uses)
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     t_start = time.time()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     # every preconditioner is built, none loaded from an earlier run's cache

@@ -15,12 +15,17 @@ imports torch, numpy and scipy, never jax.
 
 The package exports every public name of `neklab_tpu/__init__.py` that
 the port has, and a few of its own (`bfs_mesh`, `mesh_from_box`,
-`mesh_from_re2`, `read_fld`/`write_fld`, OTD's file helpers). It leaves
-out `set_precision` and `tensor.KRON3D` (switches of the TPU's matrix
-unit: here f32 contractions are true f32, TF32 off) and the sharding
-helpers, which wait for the multi-GPU slice. Importing it builds nothing
-and does not touch CUDA: the kernel and the native library are built at
-their first use.
+`mesh_from_re2`, `read_fld`/`write_fld`, OTD's file helpers,
+`gather_field`). It leaves out `set_precision` and `tensor.KRON3D`
+(switches of the TPU's matrix unit: here f32 contractions are true f32,
+TF32 off). Importing it builds nothing and does not touch CUDA: the kernel
+and the native library are built at their first use.
+
+Element-partitioned runs (`parallel/sharding.py`): `init_distributed` starts
+a rank's process group (NCCL, one rank per card, by default) and
+`shard_sem_mesh` gives it its block of the elements; every entry point
+then runs on the block, with the port's own all-reduces at the element
+boundaries and in every global sum.
 
 Field layout is the reference's element-last `[..., s, r, nel]` at every
 public function. The device is chosen once, by `box_mesh(..., device=)` (or
@@ -84,6 +89,10 @@ from .otd import (OtdOpts, OtdResult, apply_l, load_otd_ics, load_otd_restart,  
 from .analysis import (NewtonFPResult, StabilityResult, TransientGrowthResult,  # noqa: E402
                        linear_stability_analysis_fixed_point, newton_fixed_point_iteration,
                        transient_growth_analysis_fixed_point)
+
+# element-partitioned runs
+from .parallel import (gather_field, init_distributed, make_device_mesh,  # noqa: E402
+                       shard_field, shard_flow_state, shard_sem_mesh)
 
 # utilities
 from .utils.fldfile import read_fld, write_fld  # noqa: E402

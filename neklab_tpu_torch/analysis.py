@@ -53,9 +53,11 @@ class _TimedOp(LinearOperator):
             return self._op.rmatvec(x)
 
 
-def _finalize_timers(outdir: str | None) -> None:
+def _finalize_timers(outdir: str | None, part=None) -> None:
     """The driver's exit report, printed and (with outdir) written to
-    timers.log."""
+    timers.log; by rank 0 alone in a partitioned run (`part`)."""
+    if part is not None and not part.is_root:
+        return
     report = timer.report()
     if outdir:
         os.makedirs(outdir, exist_ok=True)
@@ -63,9 +65,11 @@ def _finalize_timers(outdir: str | None) -> None:
             f.write(report + "\n")
 
 
-def _outpost_modes(outdir: str, prefix: str, eigenvectors: list) -> None:
+def _outpost_modes(outdir: str, prefix: str, eigenvectors: list, part=None) -> None:
     """One field file per eigenvector, `<prefix>mode0.f<i>.npz`, a complex
-    leaf split into `<name>_re` and `<name>_im`."""
+    leaf split into `<name>_re` and `<name>_im`. In a partitioned run
+    (`part`) every rank gives its blocks, and rank 0 writes the gathered
+    fields (`outpost`)."""
     for i, v in enumerate(eigenvectors):
         fields = {}
         for name, leaf in v.items():
@@ -74,7 +78,7 @@ def _outpost_modes(outdir: str, prefix: str, eigenvectors: list) -> None:
                 fields[name + "_re"], fields[name + "_im"] = arr.real, arr.imag
             else:
                 fields[name] = arr
-        outpost(outdir, fields, prefix=prefix, case="mode", counter=i + 1)
+        outpost(outdir, fields, prefix=prefix, case="mode", counter=i + 1, part=part)
 
 
 @dataclasses.dataclass
@@ -115,12 +119,18 @@ def linear_stability_analysis_fixed_point(
     cycle, and at the end the eigenvectors as field files
     (`dirmode0.f00001.npz`, ...; complex leaves split into `_re`/`_im`)
     and timers.log. checkpoint, checkpoint_every: the Arnoldi
-    kill-and-resume file (`krylov.eigs`)."""
+    kill-and-resume file (`krylov.eigs`).
+
+    Element-partitioned (a space of a rank's block, `space.part`): every
+    rank returns the same eigenvalues and its blocks of the eigenvectors;
+    rank 0 alone writes the files, in the one-process layout."""
     t0 = time.time()
     prefix = "adj" if adjoint else "dir"
+    part = space.part
+    writes = outdir and (part is None or part.is_root)
 
     def cb(cycle, result):
-        if outdir:
+        if writes:
             _save_spectrum(outdir, prefix, result.eigvals, exptA.tau)
 
     with timer(f"{prefix}_stability"):
@@ -130,13 +140,14 @@ def linear_stability_analysis_fixed_point(
                    check_every=check_every)
     lam = np.log(res.eigvals.astype(complex)) / exptA.tau
     elapsed = time.time() - t0
-    _finalize_timers(outdir)
+    _finalize_timers(outdir, part)
     logger.info("%s stability: %d matvecs, %.1fs; leading lambda = %s",
                 prefix, res.n_matvec, elapsed, lam[0])
     eigenvectors = res.eigenvectors()
     if outdir:
-        _save_spectrum(outdir, prefix, res.eigvals, exptA.tau)
-        _outpost_modes(outdir, prefix, eigenvectors)
+        if writes:
+            _save_spectrum(outdir, prefix, res.eigvals, exptA.tau)
+        _outpost_modes(outdir, prefix, eigenvectors, part)
     return StabilityResult(
         eigvals=lam,
         multipliers=res.eigvals,

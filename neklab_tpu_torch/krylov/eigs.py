@@ -18,6 +18,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..parallel.sharding import gather_field, shard_field
 from .linop import AdjointOperator, LinearOperator
 from .space import KrylovBasis, VectorSpace
 
@@ -86,26 +87,39 @@ def _expand_krylov(
     return n_mv, j1
 
 
-def save_stack(data: dict, prefix: str, stack: dict) -> None:
+def save_stack(data: dict, prefix: str, stack: dict, part=None) -> None:
     """Host copies of a stacked basis's leaves as data[f"{prefix}{i}"], in the
-    order JAX flattens a dict (sorted keys), so the reference reads them."""
+    order JAX flattens a dict (sorted keys), so the reference reads them.
+    part: the `Partition` of an element-partitioned run; the field leaves
+    are then gathered whole on rank 0 (every rank must call this; the
+    other ranks' data gets no field leaves)."""
     for i, name in enumerate(sorted(stack)):
-        data[f"{prefix}{i}"] = stack[name].detach().cpu().numpy()
+        leaf = stack[name]
+        if part is not None and leaf.dim() > 1:
+            leaf = gather_field(leaf, part)
+        if leaf is not None:
+            data[f"{prefix}{i}"] = leaf.detach().cpu().numpy()
 
 
-def load_stack(z, prefix: str, template: Vector, kmax: int) -> dict:
+def load_stack(z, prefix: str, template: Vector, kmax: int, part=None) -> dict:
     """The stacked basis written by `save_stack` (or by the reference), on
     the template's device and in its dtypes; raises on a shape that is not
-    [kmax, *leaf.shape]."""
+    [kmax, *leaf.shape] (the whole field's, with part: each rank then keeps
+    its block of the file's field leaves)."""
     stack = {}
     for i, name in enumerate(sorted(template)):
         leaf = template[name]
         arr = z[f"{prefix}{i}"]
-        want = (kmax,) + tuple(leaf.shape)
+        shape = tuple(leaf.shape)
+        split = part is not None and leaf.dim() > 0
+        if split:
+            shape = shape[:-1] + (shape[-1] * part.size,)
+        want = (kmax,) + shape
         if arr.shape != want:
             raise ValueError(f"checkpoint leaf {i} shape {arr.shape} != expected {want} "
                              "(kdim or mesh changed?)")
-        stack[name] = torch.as_tensor(arr, dtype=leaf.dtype).to(leaf.device)
+        t = torch.as_tensor(arr, dtype=leaf.dtype)
+        stack[name] = (shard_field(t, part) if split else t).to(leaf.device)
     return {name: stack[name] for name in template}
 
 
@@ -115,24 +129,41 @@ def check_fingerprint(path: str, z, fingerprint: str) -> None:
                          f"{fingerprint!r} (different solve: delete the stale file)")
 
 
-def save_atomic(path: str, data: dict) -> None:
+def save_atomic(path: str, data: dict, part=None) -> None:
     """np.savez to a temporary name, then renamed over path: a reader sees
-    the old file or the new one, never a partial one."""
+    the old file or the new one, never a partial one. Rank 0 alone writes
+    in a partitioned run."""
+    if part is not None and not part.is_root:
+        return
     tmp = path + ".tmp.npz"
     np.savez(tmp, **data)
     os.replace(tmp, path)
+
+
+def checkpoint_exists(path: str, part=None) -> bool:
+    """Whether the checkpoint file exists, as rank 0 sees it (on every rank)."""
+    found = os.path.exists(path)
+    return found if part is None else part.from_root(found) > 0.5
+
+
+def remove_checkpoint(path: str, part=None) -> None:
+    """Deletes a finished solve's checkpoint (rank 0 alone)."""
+    if (part is None or part.is_root) and os.path.exists(path):
+        os.remove(path)
 
 
 def _save_krylov_state(path: str, V: KrylovBasis, H: np.ndarray, n_mv: int,
                        fingerprint: str = "") -> None:
     """The running Arnoldi factorization, atomically: the reference's npz
     keys (leaf_<i>, H, vk, n_mv, fingerprint). H columns 0..V.k-2 are valid
-    and V holds V.k slots."""
+    and V holds V.k slots. In a partitioned run the basis is gathered and
+    rank 0 writes the one-process layout."""
+    part = V.space.part
     data = {}
-    save_stack(data, "leaf_", V.stack)
+    save_stack(data, "leaf_", V.stack, part)
     data.update(H=H, vk=np.asarray(V.k), n_mv=np.asarray(n_mv),
                 fingerprint=np.asarray(fingerprint))
-    save_atomic(path, data)
+    save_atomic(path, data, part)
 
 
 def _load_krylov_state(path: str, space: VectorSpace, template: Vector, kmax: int,
@@ -141,7 +172,7 @@ def _load_krylov_state(path: str, space: VectorSpace, template: Vector, kmax: in
     the reference's)."""
     with np.load(path) as z:
         check_fingerprint(path, z, fingerprint)
-        stack = load_stack(z, "leaf_", template, kmax)
+        stack = load_stack(z, "leaf_", template, kmax, space.part)
         H = np.asarray(z["H"])
         vk, n_mv = int(z["vk"]), int(z["n_mv"])
     return KrylovBasis(space, None, kmax, _stack=stack, _k=vk), H, n_mv
@@ -196,7 +227,7 @@ def eigs(
 
     fp = f"eigs;kdim={kdim};nev={nev};which=lm;seed={seed};tag={tag}"
     n_mv = 0
-    if checkpoint is not None and os.path.exists(checkpoint):
+    if checkpoint is not None and checkpoint_exists(checkpoint, space.part):
         V, H, n_mv = _load_krylov_state(checkpoint, space, v0, kdim + 1, fingerprint=fp)
         k_active = V.k - 1
         logger.info("eigs: resumed from %s (%d columns, %d matvecs so far)", checkpoint,
@@ -254,8 +285,7 @@ def eigs(
             # small to restart; its spectrum is the result
             if checkpoint is not None:
                 if conv.all():
-                    if os.path.exists(checkpoint):
-                        os.remove(checkpoint)
+                    remove_checkpoint(checkpoint, space.part)
                 else:
                     _save_krylov_state(checkpoint, V, H, n_mv, fingerprint=fp)
                     logger.info("eigs: unconverged at maxiter=%d; checkpoint kept at %s",

@@ -43,10 +43,15 @@ def tree_zeros_like(x: dict) -> dict:
 @dataclasses.dataclass
 class VectorSpace:
     """dot_fn: (x, y) -> tensor; broadcasts over a leading stack axis of x.
-    rand_fn: (seed: int) -> random admissible vector (C0, BC-masked)."""
+    rand_fn: (seed: int) -> random admissible vector (C0, BC-masked).
+    part: the `Partition` of a rank's block when the vectors are blocks of
+    an element-partitioned run (dot_fn then sums across the ranks; the
+    checkpoints gather and split along the element axis); None in one
+    process."""
 
     dot_fn: Callable[[Vector, Vector], torch.Tensor]
     rand_fn: Callable[[int], Vector] | None = None
+    part: Any = None
 
     def dot(self, x: Vector, y: Vector) -> float:
         return float(self.dot_fn(x, y))

@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 from typing import Any
 
 import numpy as np
 
-from .eigs import check_fingerprint, load_stack, save_atomic, save_stack
+from .eigs import (check_fingerprint, checkpoint_exists, load_stack, remove_checkpoint,
+                   save_atomic, save_stack)
 from .linop import LinearOperator
 from .space import KrylovBasis, VectorSpace
 
@@ -49,13 +49,15 @@ def _sub(basis: KrylovBasis, m: int) -> KrylovBasis:
 
 def _save_lanczos_state(path, U, V, alphas, betas, j, n_mv, fingerprint=""):
     """Both bases and the couplings, atomically, under the reference's npz
-    keys (u_<i>, v_<i>, alphas, betas, j, n_mv, uk, vk, fingerprint)."""
+    keys (u_<i>, v_<i>, alphas, betas, j, n_mv, uk, vk, fingerprint), in
+    the one-process layout in a partitioned run (rank 0 writes)."""
+    part = U.space.part
     data = {}
-    save_stack(data, "u_", U.stack)
-    save_stack(data, "v_", V.stack)
+    save_stack(data, "u_", U.stack, part)
+    save_stack(data, "v_", V.stack, part)
     data.update(alphas=alphas, betas=betas, j=np.asarray(j), n_mv=np.asarray(n_mv),
                 uk=np.asarray(U.k), vk=np.asarray(V.k), fingerprint=np.asarray(fingerprint))
-    save_atomic(path, data)
+    save_atomic(path, data, part)
 
 
 def _load_lanczos_state(path, space, template, kdim, fingerprint=""):
@@ -63,9 +65,11 @@ def _load_lanczos_state(path, space, template, kdim, fingerprint=""):
     (the port's or the reference's)."""
     with np.load(path) as z:
         check_fingerprint(path, z, fingerprint)
-        U = KrylovBasis(space, None, kdim + 1, _stack=load_stack(z, "u_", template, kdim + 1),
+        U = KrylovBasis(space, None, kdim + 1, _stack=load_stack(z, "u_", template, kdim + 1,
+                                                                space.part),
                         _k=int(z["uk"]))
-        V = KrylovBasis(space, None, kdim + 1, _stack=load_stack(z, "v_", template, kdim + 1),
+        V = KrylovBasis(space, None, kdim + 1, _stack=load_stack(z, "v_", template, kdim + 1,
+                                                                space.part),
                         _k=int(z["vk"]))
         return U, V, np.asarray(z["alphas"]), np.asarray(z["betas"]), int(z["j"]), int(z["n_mv"])
 
@@ -105,7 +109,7 @@ def svds(
     betas = np.zeros(kdim)  # betas[j]: coupling A^T u_j -> v_{j+1}
     n_mv = 0
     j0 = 0
-    if checkpoint is not None and os.path.exists(checkpoint):
+    if checkpoint is not None and checkpoint_exists(checkpoint, space.part):
         U, V, alphas_l, betas_l, j0, n_mv = _load_lanczos_state(checkpoint, space, v, kdim,
                                                                 fingerprint=fp)
         m = min(len(alphas_l), kdim)
@@ -113,8 +117,8 @@ def svds(
         logger.info("svds: resumed from %s (j=%d, %d matvecs)", checkpoint, j0, n_mv)
 
     def done(result):
-        if checkpoint is not None and os.path.exists(checkpoint):
-            os.remove(checkpoint)
+        if checkpoint is not None:
+            remove_checkpoint(checkpoint, space.part)
         return result
 
     for j in range(j0, kdim):

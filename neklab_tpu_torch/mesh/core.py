@@ -14,6 +14,7 @@ Layout: element-LAST (`[..., pts..., nel]`), as in the reference.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -68,6 +69,18 @@ class SemMesh:
     # elements (RCB, `mesh_from_re2(partition=)`): arr_here =
     # arr_file_order[..., eperm]. None is the identity.
     eperm: torch.Tensor | None = None
+    # an element-partitioned run (`parallel.shard_sem_mesh`): this rank's
+    # block of the mesh carries its Partition and the exchange plan of its
+    # interface DOFs (DOFs with copies on other ranks): xch_n slots in one
+    # global order, xch_src int64 the flat position of one local copy of
+    # each local interface DOF and xch_slot its slot, xch_remap int64
+    # [npts*nel] the index of every flat position into [local sums, summed
+    # slots]. None (and 0) in one process.
+    xch_slot: torch.Tensor | None = None
+    xch_src: torch.Tensor | None = None
+    xch_remap: torch.Tensor | None = None
+    xch_n: int = 0
+    part: Any = None
 
     @property
     def npts(self) -> int:
@@ -87,7 +100,8 @@ class SemMesh:
         return self.bm1.dtype
 
     def to(self, device) -> "SemMesh":
-        """The same mesh with every tensor on `device`."""
+        """The same mesh with every tensor on `device` (and the same
+        partition, if any)."""
         moved = {
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
@@ -233,9 +247,15 @@ def from_file_order(mesh: SemMesh, arr):
     """Map an element-LAST array in FILE (.re2/.fld) element order onto this
     mesh's element order (the identity unless the mesh was built with RCB
     reordering). A tensor stays on its device; anything else becomes a
-    tensor on the mesh's device."""
+    tensor on the mesh's device. On a rank's block of a partitioned mesh,
+    arr is the whole field and the result this rank's block of it."""
     if not isinstance(arr, torch.Tensor):
         arr = torch.as_tensor(np.asarray(arr), device=mesh.device)
+    if mesh.part is not None:
+        e0, e1 = mesh.part.block(arr.shape[-1])
+        eperm = (torch.arange(arr.shape[-1], device=arr.device) if mesh.eperm is None
+                 else mesh.eperm.to(arr.device))
+        return arr.index_select(-1, eperm[e0:e1])
     if mesh.eperm is None:
         return arr
     return arr.index_select(-1, mesh.eperm.to(arr.device))

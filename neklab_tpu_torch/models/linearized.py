@@ -35,6 +35,7 @@ import torch
 
 from ..mesh.core import SemMesh
 from ..ops import sem
+from ..parallel.sharding import global_sum
 from . import stokes
 from . import navier_stokes as ns
 from .navier_stokes import _BDF, _EXT
@@ -356,9 +357,12 @@ def b_adjoint(mesh: SemMesh, inputs, outputs, v_u, v_theta):
     smaller than v, and the transposed solves stop at the forward's
     ABSOLUTE tolerances, so the seed is rescaled to v's Euclidean size and
     the result scaled back."""
-    nv = torch.sqrt(torch.sum(v_u * v_u) + torch.sum(v_theta * v_theta))
     iu, it = mesh.bm1 * v_u, mesh.bm1 * v_theta
-    ni = torch.sqrt(torch.sum(iu * iu) + torch.sum(it * it))
+    # both sizes over every rank's block of a partitioned mesh (one
+    # all-reduce): the scale must be the same on every rank
+    sq = torch.stack([torch.sum(v_u * v_u) + torch.sum(v_theta * v_theta),
+                      torch.sum(iu * iu) + torch.sum(it * it)])
+    nv, ni = torch.sqrt(global_sum(mesh.part, sq)).unbind()
     c = torch.where(ni > 0, nv / torch.clamp_min(ni, torch.finfo(ni.dtype).tiny), 1.0)
     grads = torch.autograd.grad(outputs, inputs, grad_outputs=(c * iu, c * it),
                                 retain_graph=True, allow_unused=True)

@@ -141,7 +141,7 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
     (`PCG`); the CG runs through `linear_solve`, so a reverse pass re-solves
     with it. stats: optional dict; each solve appends its CG's iteration
     count to stats["helmholtz"], and so does each backward of a solve
-    recorded with that dict.
+    recorded with that dict. The solver's `PCG` is `solve.cg`.
 
     x0: an optional guess of u (a C0 field, e.g. the extrapolated one),
     entered as the shift y = y0 + delta with op(delta) = b - op(y0), so the
@@ -172,7 +172,7 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
 
     like = torch.zeros(torch.broadcast_shapes(mask.shape, diag.shape), dtype=mesh.dtype,
                        device=mesh.device)
-    cg = PCG(op, like, precond=lambda r: r / diag)
+    cg = PCG(op, like, precond=lambda r: r / diag, part=mesh.part)
 
     def mass(y):
         """(d op / d h2) y: the masked assembled mass term of op."""
@@ -200,6 +200,7 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
             y = y0 + linear_solve(cg, r0, tol, maxiter, **kw)
         return ub + mask * (y / sqw)
 
+    solve.cg = cg
     return solve
 
 
@@ -229,24 +230,31 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
     (`PCG`); the CG runs through `linear_solve`, so a reverse pass re-solves
     with it. E is symmetric, and either apply is its own backward and
     forward mode under autograd (`tensor.linear`), so the warm start's
-    backward is E again and not an atomic scatter-add."""
+    backward is E again and not an atomic scatter-add. The solver's `PCG`
+    is `solve.cg`."""
     pure = mesh.p_fixed
-    proj = stokes.project_onto_range if pure else (lambda q: q)
+    proj = (lambda q: stokes.project_onto_range(q, mesh.part)) if pure else (lambda q: q)
+    # the CG's direction and residual are in range(E) already (the residual
+    # is projected at every update, the direction is built from projected
+    # preconditioned residuals), so they enter E and the preconditioner as
+    # they are and only the outputs are projected: one all-reduce each in a
+    # partitioned run
     blocks = pc is not None and pc.eb_w is not None
 
     if blocks:
         e_apply = lambda q: linear(lambda v: pc.e_apply_ef(v, dt_over_g0), q)
-        precond = lambda r: proj(pc.apply_ef(proj(r)))
+        precond = lambda r: proj(pc.apply_ef(r))
         to_ef = lambda q: q.reshape(-1, mesh.nel).T.contiguous()
     else:
         e_apply = lambda q: linear(lambda v: stokes.e_op(mesh, v, dt_over_g0), q)
-        precond = None if pc is None else (lambda r: proj(pc.apply(proj(r))))
+        precond = None if pc is None else (lambda r: proj(pc.apply(r)))
         to_ef = lambda q: q
 
     def op(dp):
-        return proj(e_apply(proj(dp)))
+        return proj(e_apply(dp))
 
-    cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond, project=proj if pure else None)
+    cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond, project=proj if pure else None,
+             part=mesh.part)
 
     def solve(rhs, x0=None, stats=None, dt_over_g0_now=None):
         """x0: optional warm start (e.g. the previous step's increment),
@@ -280,6 +288,7 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
             dp = stokes.remove_pressure_mean(mesh, dp)
         return dp
 
+    solve.cg = cg
     return solve
 
 

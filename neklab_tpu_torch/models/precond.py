@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -162,7 +163,14 @@ class ETwoLevel:
     `e_apply` and `apply` take the package's element-last fields; the
     pressure solver runs its CG element-first through `e_apply_ef` and
     `apply_ef` when eb_w is attached, which saves a transposed copy per
-    product."""
+    product.
+
+    A rank's block of an element-partitioned run (`shard`) holds its own
+    elements' rows, and its element indices (eb_nbr, oas_gin, oas_rev) point
+    into [its elements, xg_n boundary slots]: the boundary elements, those
+    some other rank reads, in one global order. xg_src int64 lists this
+    rank's boundary elements and xg_slot their slots; part is its
+    `Partition` (these four are None in one process)."""
 
     ec_inv: torch.Tensor
     blocks_inv: torch.Tensor | None = None
@@ -174,21 +182,72 @@ class ETwoLevel:
     oas_binv: torch.Tensor | None = None
     oas_gin: torch.Tensor | None = None
     oas_rev: torch.Tensor | None = None
+    xg_src: torch.Tensor | None = None
+    xg_slot: torch.Tensor | None = None
+    xg_n: int | None = None
+    part: Any = None
 
     def to(self, device) -> "ETwoLevel":
-        return ETwoLevel(**{f.name: None if getattr(self, f.name) is None
-                            else getattr(self, f.name).to(device)
-                            for f in dataclasses.fields(self)})
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def _ghosted(self, p: torch.Tensor, *coarse: torch.Tensor):
+        """(p with the boundary slots appended along its element axis (-2),
+        the `coarse` tensors summed across the ranks): each owner writes its
+        boundary elements into their slots, and one all-reduce sums the
+        slots and the coarse tensors together."""
+        if not self.xg_n:  # one rank: no boundary
+            return p, (self.part.all_reduce_many(*coarse) if coarse else [])
+        buf = p.new_zeros(p.shape[:-2] + (self.xg_n, p.shape[-1]))
+        buf.index_copy_(-2, self.xg_slot, p.index_select(-2, self.xg_src))
+        buf, *coarse = self.part.all_reduce_many(buf, *coarse)
+        return torch.cat([p, buf], -2), coarse
 
     def e_apply_ef(self, p: torch.Tensor, dt_over_g0) -> torch.Tensor:
         """Exact E p on element-first fields [..., nel, np2] (needs eb_w)."""
         nel, np2 = self.eb_w.shape[:2]
+        if self.part is not None:
+            p = self._ghosted(p)[0]
         g = p.index_select(-2, self.eb_nbr.view(-1))  # [..., nel*K, np2]
         g = g.view(g.shape[:-2] + (nel, -1, 1))
         return dt_over_g0 * torch.matmul(self.eb_w, g).squeeze(-1)
 
+    def _apply_ef_split(self, r: torch.Tensor) -> torch.Tensor:
+        """`apply_ef` on a rank's block: the coarse residual restricted
+        locally and summed in the all-reduce that fills the OAS patches'
+        boundary slots (or alone, with block Jacobi); the patches' parts
+        that land on other ranks' elements summed back in one more."""
+        nel, np2 = r.shape
+        nc = self.ec_inv.shape[0]
+        rc = torch.zeros(nc, dtype=r.dtype, device=r.device)
+        if self.q1_vert is not None:
+            rc.index_add_(0, self.q1_vert.view(-1), (r @ self.q1_b4).view(-1))
+        else:
+            rc.index_add_(0, self.agg_of_el, r.sum(1))
+        if self.oas_binv is not None:
+            ext, (rc,) = self._ghosted(r, rc)
+            rp = ext.index_select(0, self.oas_gin.view(-1)).view(nel, -1, 1)
+            sol = torch.bmm(_promote(self.oas_binv, r), rp).view(-1, np2)
+            sol = torch.cat([sol, sol.new_zeros(1, np2)])  # the pads' zero row
+            y = sol.index_select(0, self.oas_rev.view(-1)).view(nel + self.xg_n, -1, np2).sum(1)
+            out = y[:nel]
+            if self.xg_n:
+                back = self.part.all_reduce(y[nel:].contiguous())
+                out = out.index_add(0, self.xg_src, back.index_select(0, self.xg_slot))
+        else:
+            (rc,) = self.part.all_reduce_many(rc)
+            out = torch.bmm(_promote(self.blocks_inv, r), r.unsqueeze(-1)).squeeze(-1)
+        yc = self.ec_inv @ rc
+        if self.q1_vert is not None:
+            return torch.addmm(out, yc.index_select(0, self.q1_vert.view(-1)).view(nel, 4),
+                               self.q1_b4.T)
+        return out + yc.index_select(0, self.agg_of_el)[:, None]
+
     def apply_ef(self, r: torch.Tensor) -> torch.Tensor:
         """P^-1 r on one element-first field [nel, np2]."""
+        if self.part is not None:
+            return self._apply_ef_split(r)
         nel, np2 = r.shape
         if self.oas_binv is not None:
             rp = r.index_select(0, self.oas_gin.view(-1)).view(nel, -1, 1)
@@ -227,6 +286,57 @@ class ETwoLevel:
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """P^-1 r on one element-last field [pts2..., nel]."""
         return self.apply_ef(r.reshape(-1, r.shape[-1]).T).T.reshape(r.shape)
+
+    def shard(self, part) -> "ETwoLevel":
+        """This rank's block of a preconditioner built on the global mesh:
+        the element-indexed arrays cut to the rank's elements, their
+        neighbour indices remapped onto [its elements, the boundary slots],
+        the OAS patches' reverse sum rebuilt for that layout, and the coarse
+        space kept whole (its inverse is replicated; the constant coarse
+        space over elements becomes one over "aggregates" of one element)."""
+        local = self.oas_binv if self.oas_binv is not None else self.blocks_inv
+        nel_g = local.shape[0]
+        e0, e1 = part.block(nel_g)
+        nl = e1 - e0
+        host = lambda a: a.cpu().numpy()
+        reads = [host(a) for a in (self.eb_nbr, self.oas_gin) if a is not None]
+        bnd = [np.zeros(0, np.int64)]
+        for r in range(part.size):  # the elements each rank reads from others
+            lo, hi = r * nl, (r + 1) * nl
+            for a in reads:
+                seen = np.unique(a[lo:hi])
+                bnd.append(seen[(seen < lo) | (seen >= hi)])
+        bnd = np.unique(np.concatenate(bnd))
+        mine = (bnd >= e0) & (bnd < e1)
+
+        def ext(g):
+            return np.where((g >= e0) & (g < e1), g - e0, nl + np.searchsorted(bnd, g))
+
+        dev = local.device
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64, device=dev)
+        cut = lambda a: None if a is None else a[e0:e1].contiguous()
+        kw = dict(blocks_inv=cut(self.blocks_inv), q1_vert=cut(self.q1_vert),
+                  eb_w=cut(self.eb_w), oas_binv=cut(self.oas_binv))
+        if self.eb_nbr is not None:
+            kw["eb_nbr"] = as_t(ext(host(self.eb_nbr)[e0:e1]))
+        if self.oas_gin is not None:
+            gin = host(self.oas_gin)[e0:e1]
+            npat = gin.shape[1]
+            # slot 0 is the patch's own element; later slots naming it are pads
+            valid = (np.arange(npat) == 0)[None, :] | (gin != np.arange(e0, e1)[:, None])
+            tgt, rows = ext(gin)[valid], np.arange(nl * npat).reshape(nl, npat)[valid]
+            order = np.argsort(tgt, kind="stable")
+            tgt, rows = tgt[order], rows[order]
+            cnt = np.bincount(tgt, minlength=nl + len(bnd))
+            rev = np.full((nl + len(bnd), max(int(cnt.max()), 1)), nl * npat, np.int64)
+            rev[tgt, np.arange(len(tgt)) - (np.cumsum(cnt) - cnt)[tgt]] = rows
+            kw.update(oas_gin=as_t(ext(gin)), oas_rev=as_t(rev))
+        if self.agg_of_el is not None:
+            kw["agg_of_el"] = cut(self.agg_of_el)
+        elif self.q1_vert is None:
+            kw["agg_of_el"] = torch.arange(e0, e1, device=dev)
+        return dataclasses.replace(self, **kw, xg_src=as_t(bnd[mine] - e0),
+                                   xg_slot=as_t(np.flatnonzero(mine)), xg_n=len(bnd), part=part)
 
 
 # ---------------------------------------------------------------------------
@@ -467,7 +577,7 @@ def _pc_save(path: str, pc: ETwoLevel) -> None:
     data = {"__format__": np.frombuffer(_PC_FORMAT.encode(), np.uint8)}
     for f in dataclasses.fields(pc):
         v = getattr(pc, f.name)
-        if v is not None:
+        if isinstance(v, torch.Tensor):
             # npz holds no bfloat16: stored as float32 with a flag
             data[f.name] = (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
             data[f.name + "__bf16"] = np.asarray(v.dtype == torch.bfloat16)
@@ -516,7 +626,20 @@ def build_e_preconditioner(
     bfloat16 (default False; never ec_inv, whose conditioning makes
     bfloat16 rounding SPD-unsafe, nor eb_w). coarse: "q1" or "const"
     (default: "q1" on 2-D meshes at or below coarse_max_dense whose
-    neighbour blocks are probed anyway, "const" otherwise)."""
+    neighbour blocks are probed anyway, "const" otherwise).
+
+    On a rank's block of a partitioned mesh the preconditioner is built on
+    the host, from the global mesh (`Partition.global_mesh`) with the same
+    defaults as in one process (or loaded from the cache), then cut to the
+    block (`ETwoLevel.shard`), and only the block is moved to the rank's
+    device."""
+    if mesh.part is not None:
+        if mesh.part.global_mesh is None:
+            raise ValueError("build_e_preconditioner: a rank's block needs the global mesh "
+                             "(shard it with parallel.shard_sem_mesh)")
+        return build_e_preconditioner(
+            mesh.part.global_mesh.to("cpu"), dt_over_g0, coarse_max_dense, local,
+            exact_blocks, compress, coarse).shard(mesh.part).to(mesh.device)
     np2 = int(np.prod(mesh.bm2.shape[:-1]))
     nel, dtype, device = mesh.nel, mesh.dtype, mesh.device
     cache_path = _pc_cache_path(

@@ -48,43 +48,74 @@ class PCG:
     pressure CG). Without it the residual keeps the nullspace part that
     rounding adds, which no iteration can remove: in float32 that part
     (~1e-8 of the right-hand side) stalls a CG asked for a tighter residual
-    until it breaks down."""
+    until it breaks down.
+
+    part: the `Partition` of a rank's block in an element-partitioned run:
+    the dots are then summed across the ranks, p.Ap in one all-reduce and
+    (r.z, r.r) in one more, so every rank reads the same residual and
+    stops at the same iteration. `graphed` says whether the iteration
+    replays a CUDA graph: on the card unless the partition's all-reduce
+    cannot be captured (gloo), when it runs eagerly; each replay adds the
+    all-reduces it runs to the partition's log."""
 
     def __init__(self, op: Callable, like: torch.Tensor, precond: Callable | None = None,
-                 project: Callable | None = None):
+                 project: Callable | None = None, part=None):
         self.op = op
         self.precond = precond if precond is not None else (lambda r: r)
         self.project = project
+        self.part = part
         # every buffer is set by `solve` before the first iteration reads it
         self.x, self.r, self.z, self.p = (torch.empty_like(like) for _ in range(4))
         self.rz, self.rr = (torch.empty((), dtype=like.dtype, device=like.device) for _ in range(2))
         self._step = self._iterate
-        if like.is_cuda:
+        # a CUDA iteration is captured unless its all-reduces cannot be (gloo)
+        self.graphed = like.is_cuda and (part is None or part.capturable)
+        if self.graphed:
             # warm up on a side stream (lazy library set-up), then capture
             side = torch.cuda.Stream(like.device)
             side.wait_stream(torch.cuda.current_stream(like.device))
             with torch.cuda.stream(side):
                 self._iterate()
             torch.cuda.current_stream(like.device).wait_stream(side)
+            snap = None if part is None else part.log.snapshot()
             self._graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self._graph):
                 self._iterate()
             self._step = self._graph.replay
+            if part is not None:
+                # the capture ran none of the all-reduces it logged; every
+                # replay runs them all
+                self._per_replay = part.log.since(snap)
+                part.log.add(*self._per_replay, times=-1)
+                self._step = self._replay
+
+    def _replay(self) -> None:
+        self._graph.replay()
+        self.part.log.add(*self._per_replay)
+
+    def _dots(self, *pairs) -> list[torch.Tensor]:
+        """sum(a * b) of each (a, b) pair, summed across the ranks of a
+        partitioned run in one all-reduce."""
+        sums = [_dot(a, b) for a, b in pairs]
+        if self.part is None:
+            return sums
+        return list(self.part.all_reduce(torch.stack(sums)).unbind())
 
     def _iterate(self) -> None:
         """One CG iteration, in place."""
         ap = self.op(self.p)
-        alpha = self.rz / torch.clamp_min(_dot(self.p, ap), 1e-300)
+        (pap,) = self._dots((self.p, ap))
+        alpha = self.rz / torch.clamp_min(pap, 1e-300)
         self.x.addcmul_(alpha, self.p)
         self.r.addcmul_(alpha, ap, value=-1.0)
         if self.project is not None:
             self.r.copy_(self.project(self.r))
         self.z.copy_(self.precond(self.r))
-        rz_new = _dot(self.r, self.z)
+        rz_new, rr = self._dots((self.r, self.z), (self.r, self.r))
         beta = rz_new / torch.clamp_min(self.rz, 1e-300)
         torch.addcmul(self.z, beta, self.p, out=self.p)  # p = z + beta p
         self.rz.copy_(rz_new)
-        self.rr.copy_(_dot(self.r, self.r))
+        self.rr.copy_(rr)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None, tol: float = 1e-8,
               maxiter: int = 500):
@@ -102,8 +133,9 @@ class PCG:
             self.r.copy_(self.project(self.r))
         self.z.copy_(self.precond(self.r))
         self.p.copy_(self.z)
-        self.rz.copy_(_dot(self.r, self.z))
-        self.rr.copy_(_dot(self.r, self.r))
+        rz, rr = self._dots((self.r, self.z), (self.r, self.r))
+        self.rz.copy_(rz)
+        self.rr.copy_(rr)
         k = 0
         while True:
             rr = float(self.rr)
@@ -122,13 +154,14 @@ def pcg(
     x0: torch.Tensor | None = None,
     tol: float = 1e-8,
     maxiter: int = 500,
+    part=None,
 ) -> torch.Tensor:
     """Preconditioned CG on tensors -> x, the reference's functional `pcg`.
 
     Stops at ||r||_2 <= tol (absolute, Euclidean), Nek's residual-based
     rule. A solver that solves repeatedly builds one `PCG` instead (on the
-    card each call here captures a graph)."""
-    return pcg_info(op, b, precond, x0=x0, tol=tol, maxiter=maxiter)[0]
+    card each call here captures a graph). part: as in `PCG`."""
+    return pcg_info(op, b, precond, x0=x0, tol=tol, maxiter=maxiter, part=part)[0]
 
 
 def pcg_info(
@@ -138,11 +171,13 @@ def pcg_info(
     x0: torch.Tensor | None = None,
     tol: float = 1e-8,
     maxiter: int = 500,
+    part=None,
 ):
     """Preconditioned CG on tensors -> (x, iterations, final ||r||^2).
 
-    Stops at ||r||_2 <= tol (absolute, Euclidean), Nek's residual-based rule."""
-    return PCG(op, b, precond).solve(b, x0=x0, tol=tol, maxiter=maxiter)
+    Stops at ||r||_2 <= tol (absolute, Euclidean), Nek's residual-based rule.
+    part: as in `PCG`."""
+    return PCG(op, b, precond, part=part).solve(b, x0=x0, tol=tol, maxiter=maxiter)
 
 
 def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,

@@ -65,11 +65,19 @@ def e_op(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> torch.Tensor:
 
 
 def remove_pressure_mean(mesh: SemMesh, p: torch.Tensor) -> torch.Tensor:
-    """Zero bm2-weighted (physical) mean."""
-    return p - torch.sum(p * mesh.bm2) / torch.sum(mesh.bm2)
+    """Zero bm2-weighted (physical) mean, over every rank's block of a
+    partitioned mesh (one all-reduce of the two sums)."""
+    if mesh.part is None:
+        return p - torch.sum(p * mesh.bm2) / torch.sum(mesh.bm2)
+    s = mesh.part.sum(torch.stack([torch.sum(p * mesh.bm2), torch.sum(mesh.bm2)]))
+    return p - s[0] / s[1]
 
 
-def project_onto_range(rhs: torch.Tensor) -> torch.Tensor:
+def project_onto_range(rhs: torch.Tensor, part=None) -> torch.Tensor:
     """Project onto range(E) = {r : sum r = 0} (Euclidean: E's nullspace is
-    the constant vector)."""
-    return rhs - torch.mean(rhs)
+    the constant vector). part: the `Partition` of a rank's block (the
+    blocks are equal, so the global mean is the sum over the ranks over
+    size * numel); None in one process."""
+    if part is None:
+        return rhs - torch.mean(rhs)
+    return rhs - part.sum(torch.sum(rhs)) / (rhs.numel() * part.size)

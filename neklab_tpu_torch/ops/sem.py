@@ -18,6 +18,7 @@ import functools
 import torch
 
 from ..mesh.core import SemMesh
+from ..parallel.sharding import global_sum
 from . import helmholtz_kernel
 from .tensor import grad_rst, grad_rst_t, interp_nd, interp_nd_t, linear, tsum
 
@@ -54,7 +55,12 @@ def dssum(mesh: SemMesh, f: torch.Tensor) -> torch.Tensor:
 
     Q Q^T is symmetric, so under autograd the backward is `dssum` of the
     cotangent: deterministic, unlike the atomic `index_add_` that autograd
-    would make of the gather."""
+    would make of the gather.
+
+    On a rank's block of a partitioned mesh (`parallel.shard_sem_mesh`) the
+    local gather-sum is followed by one all-reduce of the packed interface
+    DOFs, whose sums are unpacked into every local copy; the backward runs
+    the same exchange."""
     if f.numel() == 0:
         return f
     return linear(functools.partial(_dssum, mesh), f)
@@ -64,8 +70,13 @@ def _dssum(mesh: SemMesh, f: torch.Tensor) -> torch.Tensor:
     lead = f.shape[: f.dim() - mesh.gidx.dim()]
     flat = torch.nn.functional.pad(f.reshape(lead + (-1,)), (0, 1))  # zero slot at the end
     copies = mesh.dss_copies
-    out = flat.index_select(-1, copies.view(-1)).view(lead + tuple(copies.shape))
-    return out.sum(-1).view(f.shape)
+    out = flat.index_select(-1, copies.view(-1)).view(lead + tuple(copies.shape)).sum(-1)
+    if mesh.xch_n:
+        buf = out.new_zeros(lead + (mesh.xch_n,))
+        buf.index_copy_(-1, mesh.xch_slot, out.index_select(-1, mesh.xch_src))
+        mesh.part.all_reduce(buf)
+        out = torch.cat([out, buf], -1).index_select(-1, mesh.xch_remap)
+    return out.view(f.shape)
 
 
 def dsavg(mesh: SemMesh, f: torch.Tensor) -> torch.Tensor:
@@ -210,5 +221,6 @@ def convect_lin_weak(mesh: SemMesh, u: torch.Tensor, theta, cache: dict):
 
 
 def mass_dot(mesh: SemMesh, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Mass-weighted global inner product sum(u * v * bm1) over all axes."""
-    return torch.sum(u * v * mesh.bm1)
+    """Mass-weighted global inner product sum(u * v * bm1) over all axes
+    (over every rank's block of a partitioned mesh)."""
+    return global_sum(mesh.part, torch.sum(u * v * mesh.bm1))

@@ -13,6 +13,7 @@ import logging
 import math
 
 import numpy as np
+import torch
 
 from ..mesh.core import SemMesh
 
@@ -58,8 +59,12 @@ def cfl_dt(mesh: SemMesh, u, cfl: float = 0.5, umin: float = 1e-12) -> float:
     """Largest dt meeting the CFL target for velocity field u [ndim, ...]."""
     sp = min_grid_spacing(mesh)
     speed = np.sqrt((_host(u) ** 2).sum(axis=0))
-    ratio = sp / np.maximum(speed, umin)
-    return float(cfl * ratio.min())
+    ratio = float((sp / np.maximum(speed, umin)).min())
+    if mesh.part is not None:  # the least over every rank's block
+        ratio = float(mesh.part.all_reduce(torch.tensor([ratio], dtype=torch.float64,
+                                                        device=mesh.part.device),
+                                           op="min"))
+    return float(cfl * ratio)
 
 
 def horizon_steps(tau: float, dt_max: float) -> tuple[float, int]:

@@ -14,6 +14,7 @@ import torch
 from .krylov.space import VectorSpace
 from .mesh.core import SemMesh
 from .ops import sem
+from .parallel.sharding import global_sum, shard_field
 
 
 def flow_vector(mesh: SemMesh, nscal: int, u=None, theta=None) -> dict:
@@ -35,24 +36,38 @@ def project_c0(mesh: SemMesh, vec: dict) -> dict:
 
 def flow_vector_space(mesh: SemMesh, nscal: int) -> VectorSpace:
     """dot_fn contracts the trailing field axes (component, points, element),
-    so a stacked basis [k, ...] against one vector gives its k Gram entries."""
+    so a stacked basis [k, ...] against one vector gives its k Gram entries.
+
+    rand_fn draws from a seeded generator on the host and moves the result
+    to the mesh's device, so the card and the CPU start from one vector. On
+    a rank's block of a partitioned mesh, dot_fn sums across the ranks in
+    one all-reduce per call (one per stacked Gram vector), and rand_fn draws
+    the whole global field on the host and moves only the rank's block to
+    its device, so a run over P ranks starts from the vector one process
+    draws."""
     nfield = mesh.ndim + 2  # component axis + point axes + element axis
+    part = mesh.part
 
     def dot_fn(x, y):
         su = (x["u"] * y["u"] * mesh.bm1).flatten(-nfield).sum(-1)
         st = (x["theta"] * y["theta"] * mesh.bm1).flatten(-nfield).sum(-1)
-        return su + st
+        return global_sum(part, su + st)
 
     def rand_fn(seed: int):
-        gen = torch.Generator(device=mesh.device)
+        gen = torch.Generator()
         gen.manual_seed(int(seed))
         shape = tuple(mesh.bm1.shape)
-        kw = dict(generator=gen, dtype=mesh.dtype, device=mesh.device)
-        u = torch.randn((mesh.ndim,) + shape, **kw)
-        theta = torch.randn((nscal,) + shape, **kw)
+        if part is not None:
+            shape = shape[:-1] + (shape[-1] * part.size,)
+        u = torch.randn((mesh.ndim,) + shape, generator=gen, dtype=mesh.dtype)
+        theta = torch.randn((nscal,) + shape, generator=gen, dtype=mesh.dtype)
+        if part is None:
+            u, theta = u.to(mesh.device), theta.to(mesh.device)
+        else:
+            u, theta = (shard_field(f, part) for f in (u, theta))
         return project_c0(mesh, {"u": u, "theta": theta})
 
-    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn)
+    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn, part=part)
 
 
 def ext_flow_vector(mesh: SemMesh, nscal: int, u=None, theta=None, T=0.0) -> dict:
@@ -68,19 +83,20 @@ def ext_flow_vector_space(mesh: SemMesh, nscal: int) -> VectorSpace:
     base = flow_vector_space(mesh, nscal)
 
     def dot_fn(x, y):
-        return base.dot_fn(x, y) + x["T"] * y["T"]
+        return base.dot_fn(x, y) + x["T"] * y["T"]  # T is the same on every rank
 
     def rand_fn(seed: int):
         v = base.rand_fn(seed)
-        gen = torch.Generator(device=mesh.device)
+        gen = torch.Generator()
         gen.manual_seed(int(seed) + 1)
-        v["T"] = torch.randn((), generator=gen, dtype=mesh.dtype, device=mesh.device)
+        v["T"] = torch.randn((), generator=gen, dtype=mesh.dtype).to(mesh.device)
         return v
 
-    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn)
+    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn, part=base.part)
 
 
 def get_size(mesh: SemMesh, nscal: int, extended: bool = False) -> int:
-    """Active DOF count: (ndim + nscal) fields of bm1's size, + 1 for T."""
-    n = (mesh.ndim + nscal) * int(mesh.bm1.numel())
+    """Active DOF count: (ndim + nscal) fields of bm1's size (the global
+    mesh's, on a rank's block), + 1 for T."""
+    n = (mesh.ndim + nscal) * int(mesh.bm1.numel()) * (1 if mesh.part is None else mesh.part.size)
     return n + 1 if extended else n

@@ -4,7 +4,10 @@ captured as CUDA graphs against the same CG on CPU tensors, the backward
 passes of the exact discrete adjoint (the kernel's, the solves', the
 recorded propagator's) and the forward mode of the kernel and the solves
 (with a dt tangent too) against the same on CPU tensors, one nonlinear step
-with an inflow lift, and one forced linearized step.
+with an inflow lift, one forced linearized step, and element-partitioned
+runs on the card: two gloo ranks sharing it (their results, and their peak
+memory against one process's), and a one-rank NCCL group whose CGs capture
+their all-reduces.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -636,3 +639,95 @@ def test_local_diagonal_chunked_at_box3d_shape(card, monkeypatch):
         peaks[name] = (torch.cuda.max_memory_allocated(card) - before, diag)
     assert peaks["chunked"][0] <= 1.5e9 < peaks["whole"][0], {k: v[0] for k, v in peaks.items()}
     assert rel(peaks["chunked"][1], peaks["whole"][1]) <= 1e-13
+
+
+# ---------------------------------------------------------------------------
+# element-partitioned runs on the card (ranks: tests/torch_shard_workers.py)
+# ---------------------------------------------------------------------------
+
+
+def test_split_propagate_gloo_ranks_share_the_card(card, tmp_path, monkeypatch):
+    """Two gloo ranks on the one card (their CUDA all-reduces staged through
+    the host, their CGs eager): `propagate` and its adjoint on the channel
+    box against one process on the card, f64, 1e-11/1e-10 solves."""
+    import torch_shard_workers as W
+    from neklab_tpu_torch.models import linearized as lin
+
+    monkeypatch.setenv("NEKLAB_PRECOND_CACHE", "0")
+    mesh = box_mesh(**W.STEP_BOX, dtype=torch.float64, device=card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    c0 = lambda: mesh.vmask * sem.dsavg(mesh, torch.randn(
+        (2,) + tuple(mesh.bm1.shape), generator=gen, dtype=mesh.dtype, device=card))
+    u0, v0 = c0(), c0()
+    y = mesh.x[1]
+    base = torch.stack([1 - y**2, 0 * y])
+    fc = dict(viscosity=0.02, dt=5e-3, vtol=1e-11, ptol=1e-10, vmaxit=200, pmaxit=400)
+    args = dict(box="step", cfg=fc, cfg_adj=fc, dt_over_g0=fc["dt"] / (11 / 6), pc={},
+                nsteps=3, device="cuda:0")
+    host = lambda a: a.cpu().numpy()
+    out = W.run_ranks("propagate", 2, str(tmp_path), args,
+                      dict(base=host(base), u0=host(u0), v0=host(v0)), timeout=300)
+    cfg = lin.LinConfig(flow=ns.FlowConfig(**fc))
+    pc = build_e_preconditioner(mesh, args["dt_over_g0"])
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=card)
+    mu, _ = lin.propagate(mesh, cfg, base, th, u0, th, 3, pc_e=pc)
+    av, _ = lin.make_adjoint_propagator(mesh, cfg, base, th, 3, pc_e=pc)(v0, th)
+    assert np.abs(out["mu"] - host(mu)).max() < 1e-7
+    assert np.abs(out["adj"] - host(av)).max() < 1e-7
+
+
+def test_split_rank_peak_memory_scales_with_its_block(card, tmp_path, monkeypatch):
+    """Two gloo ranks sharing the card, on a 32 x 8 box at order 7 (OAS +
+    Q1 + exact blocks, whose patch inverses dominate the memory): each
+    rank's peak device memory through the preconditioner's build,
+    `propagate` and its adjoint stays under 3/4 of one process's peak for
+    the same run (half of it, plus what is replicated: the coarse inverse
+    and one gathered block). The global mesh and the preconditioner's
+    build stay on the host."""
+    import torch_shard_workers as W
+    from neklab_tpu_torch.models import linearized as lin
+
+    monkeypatch.setenv("NEKLAB_PRECOND_CACHE", "0")
+    box_kw = dict(nels=(32, 8), order=7)
+    mesh = box_mesh(**dict(W.STEP_BOX, **box_kw), dtype=torch.float64, device="cpu")
+    y = mesh.x[1]
+    base = torch.stack([1 - y**2, 0 * y])
+    u0 = mesh.vmask * torch.stack([0 * y, 0.1 * torch.sin(mesh.x[0]) * (1 - y**2)])
+    fc = dict(viscosity=1e-3, dt=2e-3, vtol=1e-8, ptol=1e-8, vmaxit=200, pmaxit=400)
+    args = dict(box="step", box_kw=box_kw, cfg=fc, cfg_adj=fc, dt_over_g0=fc["dt"] / (11 / 6),
+                pc={}, nsteps=2, device="cuda:0")
+    out = W.run_ranks("propagate", 2, str(tmp_path), args,
+                      dict(base=base.numpy(), u0=u0.numpy(), v0=u0.numpy()), timeout=600)
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    start = torch.cuda.memory_allocated(card)
+    one = mesh.to(card)
+    cfg = lin.LinConfig(flow=ns.FlowConfig(**fc))
+    pc = build_e_preconditioner(one, args["dt_over_g0"])
+    th = torch.zeros((0,) + tuple(one.bm1.shape), dtype=one.dtype, device=card)
+    b, u = base.to(card), u0.to(card)
+    lin.propagate(one, cfg, b, th, u, th, 2, pc_e=pc)
+    lin.make_adjoint_propagator(one, cfg, b, th, 2, pc_e=pc)(u, th)
+    torch.cuda.synchronize(card)
+    peak_one = torch.cuda.max_memory_allocated(card) - start
+    peaks = [int(out[f"rank{r}"]["peak_bytes"]) for r in range(2)]
+    assert 0 < max(peaks) < 0.75 * peak_one, (peaks, peak_one)
+
+
+def test_one_rank_nccl_group_graphs_its_all_reduces(card, tmp_path):
+    """A one-rank NCCL group: both CGs capture their all-reduces in CUDA
+    graphs (`PCG.graphed`), every replay is logged, and 3 nonlinear steps
+    match the unsplit run's at tests/test_sharding.py's bounds."""
+    import torch_shard_workers as W
+
+    mesh = box_mesh(**W.STEP_BOX, dtype=torch.float64, device="cpu")
+    y = mesh.x[1]
+    u0 = (mesh.vmask * torch.stack([1 - y**2, 0.1 * torch.sin(mesh.x[0])])).numpy()
+    cfg = dict(viscosity=1e-3, dt=2e-3, vtol=1e-10, ptol=1e-10, vmaxit=40, pmaxit=80)
+    out = W.run_ranks("nccl", 1, str(tmp_path), dict(cfg=cfg, backend="nccl", device="cuda:0"),
+                      dict(u0=u0), timeout=300)
+    assert out["split_graphed"].all() and out["one_graphed"].all()
+    assert int(out["split_calls"]) > 0 and int(out["one_calls"]) == 0
+    assert np.abs(out["split_u"] - out["one_u"]).max() <= 1e-10
+    assert np.abs(out["split_p"] - out["one_p"]).max() <= 1e-8
