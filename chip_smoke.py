@@ -89,9 +89,15 @@ Phases:
              131k f32, 20 steps with graphed CGs vs unsplit; four gloo ranks,
              box2d 131k and box3d, f64, propagate and its adjoint vs one
              process and the B-adjoint identity; four gloo ranks, the
-             eigensolve of tests/test_sharding.py:199-245 (dt 0.4, kdim 24)
-             vs one process; collectives per step, bytes, ms per all-reduce,
-             each rank's peak device memory beside one process's
+             eigensolve of tests/test_sharding.py:199-245 (dt 0.4, kdim 24,
+             from the one-process run's eigenvectors) vs one process; collectives per step, bytes, ms per all-reduce,
+             each rank's peak device memory beside one process's;
+             16e: phase 8's Newton on one NCCL rank at full width, from
+             phase 8's spun-up state, its base flow's unsplit |F|; 16f (in
+             16d's four gloo ranks): transient growth, Newton with the exact
+             Jacobian, a resolvent frequency, the projected propagator, a
+             bordered periodic-orbit Jacobian and OTD, small and f64, each
+             against one process on the card
 
 After phases 0-2 and 5, which time the card alone, the main process starts
 one process per group of SIDE (this script with `--side oracle,resolvent`,
@@ -725,7 +731,8 @@ def oracle_phase(dev) -> dict:
     re = 500.0
     mesh, prop = poiseuille(dev, torch.float64, (4, 5), 6, re, 1e-12)
     res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0), kdim=40,
-                                                nev=NEV_RE500, tol=2e-6, maxiter=12)
+                                                nev=NEV_RE500, tol=2e-6, maxiter=12,
+                                                check_every=CHECK_EVERY)
     cand = list(shear_mode_eigenvalues(re, 6).astype(complex))
     for a in (1.0, 2.0):
         lam = orr_sommerfeld_spectrum(re, a, 96)[:6]
@@ -739,7 +746,7 @@ def oracle_phase(dev) -> dict:
     assert lead_err < 1e-5, lead_err
     adj = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0), kdim=30,
                                                 nev=2, tol=ADJ_TOL_RE500, maxiter=12,
-                                                adjoint=True)
+                                                adjoint=True, check_every=CHECK_EVERY)
     adj_err = [float(abs(adj.eigvals[0] - (-(1 / re) * (np.pi / 2) ** 2))),
                float(abs(adj.eigvals[1] - (-(1 / re) * np.pi**2)))]
     phase("oracle", t0, eigvals=[[v.real, v.imag] for v in res.eigvals],
@@ -753,7 +760,7 @@ def oracle_phase(dev) -> dict:
     hk.reset_launches(dev)
     proj = linear_stability_analysis_fixed_point(ProjectedPropagator(prop, 1.0),
                                                  flow_vector_space(mesh, 0), kdim=30, nev=2,
-                                                 tol=1e-7, maxiter=10)
+                                                 tol=1e-7, maxiter=10, check_every=CHECK_EVERY)
     launches = hk.launches(dev)
     lam = complex(proj.eigvals[0])
     os_a1 = complex(orr_sommerfeld_spectrum(re, 1.0, 96)[0])
@@ -866,6 +873,11 @@ NEV_RE7500, NEV_RE500, NEV_CYLINDER = 2, 2, 2
 # phase 6's residual tolerance: the example's 1e-6 cut to the 1e-5 that the
 # phase asserts of the TS mode, to make room for phase 15
 TOL_RE7500 = 1e-5
+# the Krylov expansion tests its projected problem every CHECK_EVERY columns
+# (the driver's default is 8), so a converged eigensolve stops within one
+# matvec of convergence instead of up to seven past it (phases 4, 6, 8 and
+# 16d, as phase 10's UPO_CHECK; PERF.md section 4)
+CHECK_EVERY = 2
 
 
 def main_path_phase(dev) -> tuple[int, complex]:
@@ -883,7 +895,8 @@ def main_path_phase(dev) -> tuple[int, complex]:
     hk.reset_launches(dev)
     mesh, expA = poiseuille(dev, torch.float32, (12, 10), 8, re, 1e-7)
     res = linear_stability_analysis_fixed_point(expA, flow_vector_space(mesh, 0), kdim=96,
-                                                nev=NEV_RE7500, tol=TOL_RE7500, maxiter=10)
+                                                nev=NEV_RE7500, tol=TOL_RE7500, maxiter=10,
+                                                check_every=CHECK_EVERY)
     launches = hk.launches(dev)
     assert launches > 0
     assert np.all(np.isfinite(res.eigvals))
@@ -984,7 +997,7 @@ ORACLE_MU1, ORACLE_BAND = 1.0156, 1e-4  # the reference's cylinder Re=50 oracle 
 
 
 def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
-                   maxiter: int = 12) -> dict:
+                   maxiter: int = 12, state: dict | None = None) -> dict:
     """Phase 8: the cylinder wake at Re=50, `medium` preset
     (examples/cylinder_stability.py:56-99), in dtype (f32; `python3
     chip_smoke.py --cylinder float64` runs it alone in f64, which separates
@@ -998,7 +1011,8 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
     unstable leading mode and a shedding frequency 0.6 < omega < 0.9;
     prints |mu_1| beside the oracle band (f32 on this mesh is not expected
     to reach it). Returns the kernel runs of each part, from the device
-    counter set to zero before it."""
+    counter set to zero before it. state: where it leaves the spun-up
+    state, the system and the Newton base flow for phase 16e."""
     from neklab_tpu_torch.analysis import (linear_stability_analysis_fixed_point,
                                            newton_fixed_point_iteration)
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
@@ -1035,12 +1049,16 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
                                         maxiter=15, gmres_kdim=30)
     runs["newton"] = hk.launches(dev)
     seconds["newton"] = time.time() - t1
+    if state is not None:
+        state["cylinder"] = dict(u0=st.u, ub=ub, cfg=cfg, system=system, space=space, nres=nres,
+                                 newton_s=seconds["newton"])
 
     hk.reset_launches(dev)
     t1 = time.time()
     expA = ExponentialPropagator(mesh, cfg, nres.x["u"], tau=1.0, dt=dt)
     eres = linear_stability_analysis_fixed_point(expA, space, kdim=kdim, nev=NEV_CYLINDER,
-                                                 tol=1e-5, maxiter=maxiter)
+                                                 tol=1e-5, maxiter=maxiter,
+                                                 check_every=CHECK_EVERY)
     runs["eigensolve"] = hk.launches(dev)
     seconds["eigensolve"] = time.time() - t1
 
@@ -1064,6 +1082,80 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
     assert abs(mu1) > 1.0, mu1
     assert 0.6 < omega < 0.9, lam1
     return runs
+
+
+def cylinder_split_phase(dev, state: dict) -> dict:
+    """Phase 16e: phase 8's Newton split, at full width on one NCCL rank
+    (the card machine shows one card, and NCCL puts no two ranks of one
+    communicator on one card): init_distributed -> shard_sem_mesh (the
+    `medium` annulus, 160 elements, order 6, f32) -> FixedPointSystem (tau
+    0.5, the example's frozen Jacobian) -> newton_fixed_point_iteration (tol
+    2e-4, GMRES kdim 30) from phase 8's spun-up state (it runs after phase 8
+    in the same process, which leaves it in `state`). Asserts Newton's
+    convergence, |F| < 2e-4 of the gathered base flow through phase 8's
+    unsplit system (an independent check of the split answer), every CG
+    graphed and the kernel's runs. Prints the iterations beside phase 8's,
+    the relative distance to phase 8's base flow, and the all-reduces per
+    Newton iteration and per GMRES matvec (`Partition.log`, graph replays
+    included)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from neklab_tpu_torch.analysis import newton_fixed_point_iteration
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.parallel import (gather_field, init_distributed, shard_field,
+                                           shard_sem_mesh)
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.vectors import flow_vector, flow_vector_space
+
+    t0 = time.time()
+    one = state["cylinder"]
+    work = os.path.join(ROOT, ".scratch", "cylinder_split")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    part = init_distributed(backend="nccl", init_method="file://" + os.path.join(work, "rdv"),
+                            world_size=1, rank=0, device=dev, timeout=600)
+    try:
+        mesh = shard_sem_mesh(cylinder_mesh("cpu", torch.float32), part)
+        cfg = one["cfg"]
+        system = FixedPointSystem(mesh, cfg, tau=0.5, ub=shard_field(one["ub"], part),
+                                  dt=cfg.flow.dt)
+        part.log.reset()
+        hk.reset_launches(dev)
+        t1 = time.time()
+        x0 = flow_vector(mesh, 0, u=shard_field(one["u0"], part))
+        nres = newton_fixed_point_iteration(system, x0, flow_vector_space(mesh, 0), tol=2e-4,
+                                            maxiter=15, gmres_kdim=30)
+        newton_s = time.time() - t1
+        runs = hk.launches(dev)
+        newton_calls = part.log.calls
+        (d,) = system.derived.values()
+        graphed = [d.psolves[o].cg.graphed for o in d.psolves] + \
+            [d.vsolves[o][0].cg.graphed for o in d.vsolves]
+        jac = system.jacobian(nres.x)
+        before = part.log.calls
+        jac.matvec(nres.x)  # one GMRES matvec's all-reduces (any direction)
+        per_matvec = part.log.calls - before
+        base = gather_field(nres.x["u"], part).to(dev)
+    finally:
+        dist.destroy_process_group()
+    ref = one["nres"]
+    fnorm = one["space"].norm(one["system"].response(flow_vector(one["system"].mesh, 0, u=base)))
+    distance = rel(base, ref.x["u"])
+    phase("cylinder_split", t0, nel=mesh.nel, newton_converged=nres.converged,
+          newton_iterations=nres.iterations, phase8_iterations=ref.iterations,
+          newton_history=nres.history, phase8_history=ref.history, gmres_matvecs=nres.matvecs,
+          phase8_gmres_matvecs=ref.matvecs, newton_s=newton_s, phase8_newton_s=one["newton_s"],
+          unsplit_residual=fnorm, rel_distance_to_phase8=distance, graphed=graphed,
+          allreduces=newton_calls,
+          allreduces_per_newton_iteration=newton_calls / max(nres.iterations, 1),
+          allreduces_per_gmres_matvec=per_matvec, kernel_runs=runs)
+    assert nres.converged, nres.history
+    assert fnorm < 2e-4, fnorm
+    assert graphed and all(graphed), graphed
+    assert runs > 0
+    return {"split cylinder Newton, 1 NCCL rank (phase 16e)": runs}
 
 
 # the example sweeps 0.6, 0.8, 1.0 and 1.2; the two ends keep the run inside
@@ -1989,6 +2081,11 @@ SHARDED_EIGS_DT = 0.4
 # and its Krylov dimension 16 -> 24: at that dt the second pair reaches the
 # case's 1e-7 inside 8 cycles of kdim 24 (80 matvecs), not of kdim 16
 SHARDED_EIGS_KDIM = 24
+# the split eigensolve starts from the one-process run's two eigenvectors
+# (their real and imaginary parts summed, B-normalized), which the main
+# process writes here (in the ranks' work directory) while the ranks run
+# 16b and 16c: a few matvecs, not 80 (PERF.md section 4)
+EIGS_START = "eigs_start.npz"
 SHARDED_F64 = dict(viscosity=1e-3, dt=2e-3, vtol=1e-10, ptol=1e-10, vmaxit=400, pmaxit=800)
 SHARDED_NSTEPS = 3  # the BDF1/2 ramp and one BDF3 step
 
@@ -2108,15 +2205,30 @@ def rank_propagate(part, dev, case: str, work: str) -> dict:
             "identity": ident, "stats": stats_out}
 
 
+def eigs_start(work: str, timeout: float = 600.0) -> np.ndarray:
+    """Phase 16d's start vector (the velocity of `EIGS_START` under work),
+    once the one-process run has written it."""
+    path = os.path.join(work, EIGS_START)
+    deadline = time.time() + timeout
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"phase 16d: no start vector at {path}")
+        time.sleep(0.5)
+    with np.load(path) as z:
+        return z["u"]
+
+
 def rank_eigs(part, dev, work: str) -> dict:
-    """A gloo rank of phase 16 (d): the eigensolve through the driver, rank 0
-    writing its files to work/out."""
-    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig,
+    """A gloo rank of phase 16 (d): the eigensolve through the driver from
+    the one-process run's eigenvectors (`eigs_start`), rank 0 writing its
+    files to work/out."""
+    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, flow_vector,
                                   flow_vector_space, linear_stability_analysis_fixed_point)
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
-    from neklab_tpu_torch.parallel import shard_sem_mesh
+    from neklab_tpu_torch.parallel import shard_field, shard_sem_mesh
 
     mesh = shard_sem_mesh(sharded_mesh("eigs", "cpu", torch.float64), part)
+    v0 = flow_vector(mesh, 0, u=shard_field(eigs_start(work), part))
     y = mesh.x[1]
     fc = FlowConfig(viscosity=0.05, dt=SHARDED_EIGS_DT, vtol=1e-11, ptol=1e-11, vmaxit=60,
                     pmaxit=120)
@@ -2126,7 +2238,7 @@ def rank_eigs(part, dev, work: str) -> dict:
     hk.reset_launches(dev)
     res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
                                                 kdim=SHARDED_EIGS_KDIM, nev=2, tol=1e-7,
-                                                maxiter=8, seed=3,
+                                                maxiter=8, v0=v0, check_every=CHECK_EVERY,
                                                 outdir=os.path.join(work, "out"))
     calls = part.log.calls
     steps = res.n_matvec * prop.nsteps
@@ -2187,10 +2299,161 @@ def rank_nccl(part, dev, work: str) -> dict:
                       "split": out["split"], "one": out["one"]}}
 
 
+# phase 16f: small split cases after 16d, in the same four gloo ranks, each
+# at minimal depth (PERF.md section 4): one step per matvec at 16d's dt
+# where the case allows it (the resolvent's period needs four)
+SMALL_F64 = dict(viscosity=0.05, dt=SHARDED_EIGS_DT, vtol=1e-11, ptol=1e-11, vmaxit=60,
+                 pmaxit=120)
+SMALL_TG = dict(nsv=1, kdim=2, tol=1e-6, seed=3)
+SMALL_NU = 0.1  # the forced channel's (tests/test_systems.py), body force 2 nu
+SMALL_UPO = dict(T=0.1, nsteps=2)
+SMALL_OTD = dict(r=2, printstep=1, orthostep=1, iostep=2, iorststep=2, solve_baseflow=False)
+SMALL_FILES = {"tg": ["singular_spectrum.dat", "timers.log"],
+               "newton": ["residual.dat", "timers.log"],
+               "otd": ["Lr.dat", "Ls.dat", "m01otd0.f00001", "m02otd0.f00001",
+                       "rstotd0.f00001.npz"]}
+
+
+def _small_force(m, t, u, th):
+    f = torch.zeros((2,) + tuple(m.bm1.shape), dtype=m.dtype, device=m.device)
+    f[0] = 2.0 * SMALL_NU
+    return f
+
+
+def small_cases(dev, part=None, outdir: str | None = None) -> dict:
+    """Phase 16f's cases, f64, on rank `part`'s block (four gloo ranks
+    sharing the card) or, with part None, in one process on the card: the
+    same code, the same inputs (drawn whole on the host). On 16d's 8 x 2
+    box at order 4 about 0.3 (1 - y^2) at dt 0.4: transient growth (nsv 1,
+    kdim 2, one step per matvec), one resolvent frequency (4 steps per
+    period, GMRES rtol 1e-2), the projected propagator's matvec and rmatvec
+    (one step); on the forced 4 x 2 channel at order 4
+    (tests/test_systems.py's, widened to split over four ranks): one Newton
+    iteration with the exact Jacobian (tau = dt = 0.05, GMRES to 1e-2, the
+    constant scheduler) and one bordered periodic-orbit Jacobian matvec
+    (dT != 0) and rmatvec (T 0.1 over 2 steps); on tests/test_otd.py's 3 x 4
+    channel: OTD with r = 2 over 2 steps from random modes. The drivers
+    write to outdir/{tg,newton,otd}. -> the gathered results (rank 0's; the
+    other ranks' hold None), the seconds of each case and the kernel runs."""
+    from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh,
+                                  flow_vector, flow_vector_space, newton_fixed_point_iteration,
+                                  transient_growth_analysis_fixed_point)
+    from neklab_tpu_torch import otd
+    from neklab_tpu_torch.linops.projected import ProjectedPropagator
+    from neklab_tpu_torch.linops.resolvent import Resolvent
+    from neklab_tpu_torch.models.navier_stokes import initial_state
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.parallel import gather_field, shard_field, shard_sem_mesh
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.systems.periodic_orbit import PeriodicOrbitSystem
+    from neklab_tpu_torch.vectors import ext_flow_vector
+
+    split = part is not None
+    place = lambda gm: shard_sem_mesh(gm, part) if split else gm.to(dev)
+    field = lambda f: shard_field(f, part) if split else f.to(dev)
+    whole = lambda f: gather_field(f, part) if split else f.detach().cpu()
+    out_of = lambda name: None if outdir is None else os.path.join(outdir, name)
+    forced = lambda: box_mesh((4, 2), ((0.0, 2.0), (-1.0, 1.0)), CHANNEL, order=4,
+                              device="cpu")
+
+    def draws(gm, seed, n):
+        """n C0, velocity-masked fields of the global mesh, drawn on the host."""
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        return [gm.vmask * sem.dsavg(gm, torch.randn((2,) + tuple(gm.bm1.shape), generator=gen,
+                                                     dtype=gm.dtype)) for _ in range(n)]
+
+    out, seconds = {}, {}
+    hk.reset_launches(dev)
+    gm = channel("cpu", torch.float64, (8, 2), 4)
+    mesh = place(gm)
+    y = mesh.x[1]
+    base = torch.stack([0.3 * (1 - y**2), 0 * y])
+    cfg = LinConfig(flow=FlowConfig(**SMALL_F64))
+    dt = cfg.flow.dt
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+
+    t1 = time.time()
+    A = ExponentialPropagator(mesh, cfg, base, tau=dt, dt=dt)
+    tg = transient_growth_analysis_fixed_point(A, flow_vector_space(mesh, 0), outdir=out_of("tg"),
+                                               **SMALL_TG)
+    out.update(tg_sigma=tg.sigma, tg_n_matvec=tg.n_matvec)
+    seconds["tg"] = time.time() - t1
+
+    t1 = time.time()
+    f_re, f_im, pv, pw = draws(gm, 41, 4)
+    R = Resolvent(mesh, cfg, base, omega=2 * np.pi / (4 * dt), dt=dt, gmres_rtol=1e-2,
+                  gmres_kdim=30)
+    rf = R.matvec({"re": {"u": field(f_re), "theta": th}, "im": {"u": field(f_im), "theta": th}})
+    out.update(res_re=whole(rf["re"]["u"]), res_im=whole(rf["im"]["u"]),
+               res_gmres=R.last_gmres_matvecs, res_nsteps=R.nsteps)
+    seconds["resolvent"] = time.time() - t1
+
+    t1 = time.time()
+    P = ProjectedPropagator(A, 1.0)
+    norm = lambda v: v / float(sem.mass_dot(gm, v, v)) ** 0.5
+    out["proj_matvec"] = whole(P.matvec({"u": field(norm(pv)), "theta": th})["u"])
+    out["proj_rmatvec"] = whole(P.rmatvec({"u": field(norm(pw)), "theta": th})["u"])
+    seconds["projected"] = time.time() - t1
+
+    t1 = time.time()
+    gm = forced()
+    mesh = place(gm)
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+    fcfg = LinConfig(flow=FlowConfig(viscosity=SMALL_NU, dt=0.05, vtol=1e-12, ptol=1e-12,
+                                     forcing_fn=_small_force))
+    gy = gm.x[1]
+    noise, du, dv = draws(gm, 43, 3)
+    guess = gm.vmask * sem.dsavg(gm, torch.stack([0.7 * (1 - gy**2), 0 * gy]) + 0.05 * noise)
+    system = FixedPointSystem(mesh, fcfg, tau=0.05, dt=0.05, exact_jacobian=True)
+    nres = newton_fixed_point_iteration(system, flow_vector(mesh, 0, u=field(guess)),
+                                        flow_vector_space(mesh, 0), tol=1e-2, maxiter=1,
+                                        scheduler="constant", gmres_kdim=20,
+                                        outdir=out_of("newton"))
+    out.update(newton_history=np.asarray(nres.history), newton_matvecs=np.asarray(nres.matvecs))
+    seconds["newton"] = time.time() - t1
+
+    t1 = time.time()
+    upo = PeriodicOrbitSystem(mesh, fcfg, t_guess=SMALL_UPO["T"], nsteps=SMALL_UPO["nsteps"])
+    orbit = gm.vmask * sem.dsavg(gm, torch.stack([0.9 * (1 - gy**2), 0.02 * torch.sin(np.pi * gy)])
+                                 + 0.05 * noise)
+    ext = lambda u, T: ext_flow_vector(mesh, 0, u=field(u), theta=th, T=T)
+    jac = upo.jacobian(ext(orbit, SMALL_UPO["T"]))
+    mv, rmv = jac.matvec(ext(du, 0.7)), jac.rmatvec(ext(dv, -0.4))
+    out.update(upo_matvec=whole(mv["u"]), upo_matvec_T=float(mv["T"]), upo_rmatvec=whole(rmv["u"]),
+               upo_rmatvec_T=float(rmv["T"]))
+    seconds["upo"] = time.time() - t1
+
+    t1 = time.time()
+    gm = box_mesh((3, 4), ((0.0, 2 * np.pi), (-1.0, 1.0)), CHANNEL, order=4, device="cpu")
+    mesh = place(gm)
+    ocfg = LinConfig(flow=FlowConfig(viscosity=1 / 100, dt=0.06, vtol=1e-11, ptol=1e-11))
+    y = mesh.x[1]
+    res = otd.otd_analysis(mesh, ocfg, otd.OtdOpts(**SMALL_OTD),
+                           initial_state(mesh, ocfg.flow, u=torch.stack([1 - y**2, 0 * y])), 2,
+                           outdir=out_of("otd"), seed=7)
+    out["otd_lr"] = np.stack([lr for _, lr in res.lr_history])
+    seconds["otd"] = time.time() - t1
+    out["kernel_runs"] = hk.launches(dev)
+    out["seconds"] = seconds
+    return out
+
+
+def rank_small(part, dev, work: str) -> dict:
+    """A gloo rank of phase 16f: `small_cases` on the rank's block, rank 0
+    writing the drivers' files under work/small."""
+    part.log.reset()
+    out = small_cases(dev, part, os.path.join(work, "small"))
+    out["stats"] = {"seconds": out.pop("seconds"), "kernel_runs": out.pop("kernel_runs"),
+                    "allreduces": part.log.calls}
+    return out
+
+
 def rank_main(argv) -> None:
     """`chip_smoke.py --rank JOB RANK SIZE WORKDIR`: one rank of phase 16,
-    JOB "nccl" (16a) or "gloo" (16b, c and d, one after another in the same
-    ranks). Rank 0 writes each case's gathered fields to
+    JOB "nccl" (16a) or "gloo" (16b, c, d and f, one after another in the
+    same ranks). Rank 0 writes each case's gathered fields to
     WORKDIR/out_<case>.npz; every rank writes its numbers to
     WORKDIR/stats<rank>.json."""
     job, rank, size, work = argv[0], int(argv[1]), int(argv[2]), argv[3]
@@ -2209,6 +2472,7 @@ def rank_main(argv) -> None:
         else:
             outs = {case: rank_propagate(part, dev, case, work) for case in ("box2d", "box3d")}
             outs["eigs"] = rank_eigs(part, dev, work)
+            outs["small"] = rank_small(part, dev, work)
         stats = {case: out.pop("stats") for case, out in outs.items()}
         with open(os.path.join(work, f"stats{rank}.json"), "w") as f:
             json.dump(stats, f, default=float)
@@ -2232,7 +2496,8 @@ def start_ranks(job: str, size: int, inputs: dict | None = None):
         np.savez(os.path.join(work, "in.npz"), **inputs)
     log = open(os.path.join(work, "ranks.log"), "w+")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", job, str(r),
-                               str(size), work], stdout=log, stderr=subprocess.STDOUT)
+                               str(size), work], stdout=log, stderr=subprocess.STDOUT,
+                              env=one_blas_thread())
              for r in range(size)]
     return procs, work, log
 
@@ -2283,10 +2548,16 @@ def sharded_phase(dev) -> dict:
     one process on the card (<= 1e-7 relative) with the B-adjoint identity;
     (d) four gloo ranks: the eigensolve of tests/test_sharding.py:199-245
     (dt cut to SHARDED_EIGS_DT, kdim SHARDED_EIGS_KDIM) through
-    linear_stability_analysis_fixed_point against one process, |dmu| <
-    1e-6, rank 0 alone writing the files. Prints ms/step, collectives per
-    step, bytes per collective, ms per gloo all-reduce on CUDA tensors, and
-    the kernel's runs in every rank beside one process's. Returns the
+    linear_stability_analysis_fixed_point, from the one-process run's
+    eigenvectors (`EIGS_START`), against that run (from seed 3), |dmu| <
+    1e-6, rank 0 alone writing the files; (f) in the same four ranks,
+    `small_cases` against the same run in one process on the card: |dsigma|
+    <= 1e-9, the Newton |F| history (exact Jacobian) within 1e-9 relative,
+    the resolvent's GMRES count and response (1e-8 relative), the projected
+    matvec and rmatvec (1e-12), the bordered periodic-orbit Jacobian (1e-9
+    relative), OTD's Lr (1e-9), rank 0's files. Prints ms/step, collectives
+    per step, bytes per collective, ms per gloo all-reduce on CUDA tensors,
+    and the kernel's runs in every rank beside one process's. Returns the
     kernel runs of the split main paths (summed over the ranks)."""
     import shutil
 
@@ -2311,7 +2582,7 @@ def sharded_phase(dev) -> dict:
 
 
 def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
-    """Phase 16's four cases, filling numbers (printed) and runs (the
+    """Phase 16's cases (a-d, f), filling numbers (printed) and runs (the
     kernel runs of the split main paths)."""
     from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig,
                                   flow_vector_space, linear_stability_analysis_fixed_point)
@@ -2319,6 +2590,7 @@ def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
     from neklab_tpu_torch.models.linearized import make_adjoint_propagator, propagate
     from neklab_tpu_torch.models.precond import build_e_preconditioner
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
 
     started = start_ranks("nccl", 1)
     outs, stats = finish_ranks(started, 400)
@@ -2378,8 +2650,16 @@ def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
     hk.reset_launches(dev)
     ref = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
                                                 kdim=SHARDED_EIGS_KDIM, nev=2, tol=1e-7,
-                                                maxiter=8, seed=3)
+                                                maxiter=8, seed=3, check_every=CHECK_EVERY)
     eig_runs = hk.launches(dev)
+    host = lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    start = torch.as_tensor(sum(np.real(host(v["u"])) + np.imag(host(v["u"]))
+                                for v in ref.eigenvectors), device=dev)
+    start = start / float(sem.mass_dot(mesh, start, start)) ** 0.5
+    work = os.path.join(ROOT, ".scratch", "sharded_gloo")
+    np.savez(os.path.join(work, "tmp_" + EIGS_START), u=start.cpu().numpy())
+    os.replace(os.path.join(work, "tmp_" + EIGS_START), os.path.join(work, EIGS_START))
+    one_small = small_cases(dev, None, os.path.join(ROOT, ".scratch", "sharded_small_one"))
     outs, stats = finish_ranks(started, 900)
 
     for case, (mu, av, ms, one_runs, peak) in one.items():
@@ -2411,6 +2691,38 @@ def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
     assert files == ["dir_eigenspectrum.npy", "dirmode0.f00001.npz", "dirmode0.f00002.npz",
                      "timers.log"], files
     runs["sharded gloo eigensolve, 4 ranks (phase 16d)"] = sum(s["kernel_runs"] for s in st)
+
+    out, st = outs["small"], [s["small"] for s in stats]
+    one = one_small
+    small = os.path.join(ROOT, ".scratch", "sharded_gloo", "small")
+    files = {case: sorted(os.listdir(os.path.join(small, case))) for case in SMALL_FILES}
+    errs = {"tg_dsigma": float(np.abs(out["tg_sigma"] - one["tg_sigma"]).max()),
+            "newton_history": float(np.max(np.abs(out["newton_history"] - one["newton_history"])
+                                           / one["newton_history"])),
+            "resolvent": max(rel(torch.as_tensor(out[k]), one[k]) for k in ("res_re", "res_im")),
+            "projected": max(float((torch.as_tensor(out[k]) - one[k]).abs().max())
+                             for k in ("proj_matvec", "proj_rmatvec")),
+            "upo": max(rel(torch.as_tensor(out[k]), one[k]) for k in ("upo_matvec", "upo_rmatvec")),
+            "upo_T": max(abs(float(out[k]) - one[k]) / abs(one[k])
+                         for k in ("upo_matvec_T", "upo_rmatvec_T")),
+            "otd_lr": float(np.abs(out["otd_lr"] - one["otd_lr"]).max())}
+    numbers["f_gloo4_small_f64"] = dict(
+        errs=errs, tg_sigma=out["tg_sigma"].tolist(), tg_n_matvec=int(out["tg_n_matvec"]),
+        newton_history=out["newton_history"].tolist(),
+        newton_matvecs=out["newton_matvecs"].tolist(), res_gmres=int(out["res_gmres"]),
+        one_process_res_gmres=one["res_gmres"], res_nsteps=int(out["res_nsteps"]),
+        otd_lr=out["otd_lr"][-1].tolist(), one_process_seconds=one["seconds"],
+        one_process_kernel_runs=one["kernel_runs"], files=files, ranks=st)
+    assert errs["tg_dsigma"] <= 1e-9 and int(out["tg_n_matvec"]) == one["tg_n_matvec"], errs
+    assert len(out["newton_history"]) == len(one["newton_history"]), errs
+    assert errs["newton_history"] <= 1e-9, errs
+    assert int(out["res_gmres"]) == one["res_gmres"] and errs["resolvent"] <= 1e-8, errs
+    assert errs["projected"] <= 1e-12, errs
+    assert errs["upo"] <= 1e-9 and errs["upo_T"] <= 1e-9, errs
+    assert errs["otd_lr"] <= 1e-9, errs
+    assert files == SMALL_FILES, files
+    assert all(s["kernel_runs"] > 0 for s in st), st
+    runs["sharded gloo small drivers, 4 ranks (phase 16f)"] = sum(s["kernel_runs"] for s in st)
 
 
 def eigs_depth(dev, case: str, settings: list[str]) -> None:
@@ -2469,11 +2781,20 @@ def eigs_depth(dev, case: str, settings: list[str]) -> None:
 # last in the main process, where most of it runs after the groups have
 # ended (PERF.md section 6). The groups are packed to end together (phase
 # 10 alone is the longest); phase 16 runs first in its group, so that its
-# four ranks do not share the card with phase 15
+# four ranks do not share the card with phase 15; phase 16e follows phase 8
+# in its process, from phase 8's spun-up state
 MAIN_FIRST = ("kernel", "box2d")
-SIDE = ("upo", "oracle,resolvent", "otd,cylinder", "sharded,bfs,box21k,box3d")
-MAIN_THEN = ("parity", "nonlinear", "parity_r", "parity_u", "parity_3d", "re7500", "growth",
-             "channel3d")
+SIDE = ("upo", "oracle,box21k,box3d", "parity_r,parity_u,cylinder,cylinder_split",
+        "sharded,otd", "bfs,resolvent")
+MAIN_THEN = ("parity", "nonlinear", "parity_3d", "re7500", "growth", "channel3d")
+
+
+def one_blas_thread() -> dict:
+    """This process's environment for a side process or a rank: their host
+    algebra (Hessenberg, Schur, Cholesky: small) on one BLAS thread each,
+    so that six processes and four ranks leave the host's cores to the
+    launches."""
+    return dict(os.environ, OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1", OMP_NUM_THREADS="1")
 
 
 def run_phase(name: str, dev, state: dict):
@@ -2500,7 +2821,7 @@ def run_phase(name: str, dev, state: dict):
     elif name == "oracle":
         return {"projected eigensolve (phase 4)": oracle_phase(dev)["projected"]}
     elif name == "cylinder":
-        runs = cylinder_phase(dev)
+        runs = cylinder_phase(dev, state=state)
         return {"cylinder spin-up (phase 8)": runs["spin-up"],
                 "cylinder Newton + eigensolve (phase 8)": runs["newton"] + runs["eigensolve"]}
     elif name == "resolvent":
@@ -2527,6 +2848,8 @@ def run_phase(name: str, dev, state: dict):
         channel3d_phase(dev)
     elif name == "sharded":
         return sharded_phase(dev)
+    elif name == "cylinder_split":
+        return cylinder_split_phase(dev, state)
     else:
         raise SystemExit(f"chip_smoke: no phase {name!r}")
     return None
@@ -2559,12 +2882,12 @@ def main() -> None:
         eigs_depth(dev, args[1], args[2:])
         return
     if args[:1] == ["--side"]:
-        # five processes share the host's cores: a group's CPU work (the
+        # six processes share the host's cores: a group's CPU work (the
         # card-vs-CPU references, host preprocessing) takes two
         torch.set_num_threads(min(torch.get_num_threads(), 2))
-        runs: dict = {}
+        runs, state = {}, {}  # state: what a phase hands a later one of its group
         for name in args[1].split(","):
-            runs.update(run_phase(name, dev, {}) or {})
+            runs.update(run_phase(name, dev, state) or {})
         print("launches " + json.dumps(runs), flush=True)
         return
     if args[:1] == ["--only"]:
@@ -2607,9 +2930,9 @@ def main() -> None:
     logs = {group: open(os.path.join(logdir, f"side_{i}.log"), "w+")
             for i, group in enumerate(SIDE)}
     side = {group: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", group],
-                                    stdout=logs[group], text=True)
+                                    stdout=logs[group], text=True, env=one_blas_thread())
             for group in SIDE}
-    # five processes share the host's cores (the side processes take two)
+    # six processes share the host's cores (the side processes take two)
     torch.set_num_threads(min(torch.get_num_threads(), 4))
     by_path = {}
     try:

@@ -183,17 +183,22 @@ def newton_fixed_point_iteration(
     """Newton-Krylov base-flow computation: `krylov.newton` on `system`
     (e.g. `systems.fixed_point.FixedPointSystem`) with the scheduler
     nek_dynamic_tol ("dynamic") or nek_constant_tol. With `outdir`, writes
-    residual.dat: one line per entry of the history, `i |F|`."""
+    residual.dat: one line per entry of the history, `i |F|`, and
+    timers.log.
+
+    Element-partitioned (`space.part`): every rank returns the same history
+    and its block of the solution; rank 0 alone writes the files."""
     t0 = time.time()
+    part = space.part
     sched = dynamic_tol(tol) if scheduler == "dynamic" else constant_tol(tol)
     with timer("newton_fixed_point"):
         res = newton(system, x0, space, tol=tol, maxiter=maxiter, scheduler=sched,
                      gmres_kdim=gmres_kdim, callback=callback)
     elapsed = time.time() - t0
-    _finalize_timers(outdir)
+    _finalize_timers(outdir, part)
     logger.info("newton: converged=%s |F|=%.3e in %d its (%.1fs)", res.converged,
                 res.residual_norm, res.iterations, elapsed)
-    if outdir:
+    if outdir and (part is None or part.is_root):
         os.makedirs(outdir, exist_ok=True)
         with open(os.path.join(outdir, "residual.dat"), "w") as f:
             for i, r in enumerate(res.history):
@@ -228,15 +233,20 @@ def transient_growth_analysis_fixed_point(
     energy growth over tau. Each Lanczos iteration is one matvec and one
     rmatvec. With `outdir`, writes singular_spectrum.dat (one line per
     singular value: index, sigma, residual) and timers.log. checkpoint,
-    checkpoint_every: the Lanczos kill-and-resume file (`krylov.svds`)."""
+    checkpoint_every: the Lanczos kill-and-resume file (`krylov.svds`).
+
+    Element-partitioned (`space.part`): every rank returns the same singular
+    values and its blocks of the optimal inputs and outputs; rank 0 alone
+    writes the files."""
     t0 = time.time()
+    part = space.part
     with timer("transient_growth"):
         res = svds(_TimedOp(exptA, "exptA"), space, nsv=nsv, kdim=kdim, tol=tol, seed=seed,
                    checkpoint=checkpoint, checkpoint_every=checkpoint_every)
     elapsed = time.time() - t0
-    _finalize_timers(outdir)
+    _finalize_timers(outdir, part)
     logger.info("transient growth: sigma = %s (%d matvecs, %.1fs)", res.s, res.n_matvec, elapsed)
-    if outdir:
+    if outdir and (part is None or part.is_root):
         os.makedirs(outdir, exist_ok=True)
         with open(os.path.join(outdir, "singular_spectrum.dat"), "w") as f:
             for i, (s, r) in enumerate(zip(res.s, res.residuals)):

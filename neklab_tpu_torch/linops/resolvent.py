@@ -51,7 +51,9 @@ from ..vectors import flow_vector_space
 
 def complex_pair_space(mesh: SemMesh, nscal: int) -> VectorSpace:
     """Real dot over {re, im} pairs = Re<x, y>_H of the Hermitian mass inner
-    product (the realification svds uses for resolvent analysis)."""
+    product (the realification svds uses for resolvent analysis). On a
+    rank's block the dot is global (`flow_vector_space`) and the space
+    carries the partition, as the flow space does."""
     base = flow_vector_space(mesh, nscal)
 
     def dot_fn(x, y):
@@ -60,7 +62,7 @@ def complex_pair_space(mesh: SemMesh, nscal: int) -> VectorSpace:
     def rand_fn(seed: int):
         return {"re": base.rand_fn(2 * int(seed)), "im": base.rand_fn(2 * int(seed) + 1)}
 
-    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn)
+    return VectorSpace(dot_fn=dot_fn, rand_fn=rand_fn, part=base.part)
 
 
 class Resolvent(LinearOperator):

@@ -19,6 +19,12 @@ that arithmetic: r times the launches of one linearized step (one joint CG
 over the stacked modes would stop on their joint residual instead).
 Perturbation batches are `PertState`s whose fields carry a leading mode
 axis r.
+
+On a rank's block of a partitioned mesh (`parallel.shard_sem_mesh`) the
+Gram matrices are summed over the ranks (one all-reduce of the r x r
+matrix), the random start is drawn whole on the host and split, and the
+files (Ls.dat, Lr.dat, the mode files, the restarts) are written by rank 0
+in the one-process layout.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from .models.linearized import (LinConfig, PertState, _explicit_lin_map,
                                 adjoint_explicit_lin_map, pert_initial, step_lin)
 from .models.navier_stokes import FlowState
 from .ops import sem
+from .parallel.sharding import gather_field, global_sum, shard_field
 
 logger = logging.getLogger("neklab_tpu_torch.otd")
 
@@ -90,8 +97,9 @@ def apply_l(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, st: PertState,
 
 
 def _mass_dots(mesh: SemMesh, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[r, r] Gram matrix sum(a_i * b_j * bm1) of two mode stacks [r, ...]."""
-    return (a * mesh.bm1).flatten(1) @ b.flatten(1).T
+    """[r, r] Gram matrix sum(a_i * b_j * bm1) of two mode stacks [r, ...],
+    summed over every rank's block (one all-reduce of the matrix)."""
+    return global_sum(mesh.part, (a * mesh.bm1).flatten(1) @ b.flatten(1).T)
 
 
 def _mode(states: PertState, i: int) -> PertState:
@@ -206,11 +214,27 @@ def otd_chunk(
     return base, perts, lr
 
 
+def _global_shape(mesh: SemMesh, shape) -> tuple:
+    """shape with its last (element) axis the global mesh's on a rank's block."""
+    shape = tuple(shape)
+    return shape if mesh.part is None else shape[:-1] + (shape[-1] * mesh.part.size,)
+
+
+def _to_mesh(mesh: SemMesh, f) -> torch.Tensor:
+    """A whole field (host) on the mesh's device: its block on a rank's."""
+    f = torch.as_tensor(f, dtype=mesh.dtype)
+    return f.to(mesh.device) if mesh.part is None else shard_field(f, mesh.part)
+
+
 def _random_modes(mesh: SemMesh, count: int, seed: int) -> torch.Tensor:
-    gen = torch.Generator(device=mesh.device)
+    """count standard-normal velocity fields, drawn whole on the host from a
+    torch.Generator seeded with seed (so a card, the CPU and a run over P
+    ranks start from the same modes)."""
+    gen = torch.Generator()
     gen.manual_seed(int(seed))
-    return torch.randn((count, mesh.ndim) + tuple(mesh.bm1.shape), generator=gen,
-                       dtype=mesh.dtype, device=mesh.device)
+    u = torch.randn((count, mesh.ndim) + _global_shape(mesh, mesh.bm1.shape), generator=gen,
+                    dtype=mesh.dtype)
+    return _to_mesh(mesh, u)
 
 
 def _initial_perts(mesh: SemMesh, cfg: LinConfig, us) -> PertState:
@@ -229,11 +253,12 @@ def load_otd_ics(
     reference's OTDIC_xx.fld convention): the first len(paths) modes come
     from the files (binary Nek .fld or .npz with a "u" array), the remaining
     of the r modes are random (a torch.Generator seeded with `seed`), and
-    the whole basis is orthonormalized."""
+    the whole basis is orthonormalized. A file holds the whole field; on a
+    rank's block each rank keeps its block of it."""
     r = r if r is not None else len(paths)
     if len(paths) > r:
         raise ValueError(f"more IC files ({len(paths)}) than modes ({r})")
-    shape = (mesh.ndim,) + tuple(mesh.bm1.shape)
+    shape = (mesh.ndim,) + _global_shape(mesh, mesh.bm1.shape)
     us = []
     for p in paths:
         if p.endswith(".npz"):
@@ -246,7 +271,7 @@ def load_otd_ics(
         if u is None or u.shape != shape:
             raise ValueError(f"IC file {p}: expected velocity shaped {shape}, got "
                              f"{None if u is None else u.shape}")
-        us.append(torch.as_tensor(u, dtype=mesh.dtype, device=mesh.device))
+        us.append(_to_mesh(mesh, u))
     if len(us) < r:
         us.extend(list(_random_modes(mesh, r - len(us), seed)))
     return _initial_perts(mesh, cfg, us)
@@ -267,40 +292,55 @@ def outpost_otd_modes(
 ) -> list[str]:
     """Project the OTD basis by the (real part of the) Lr eigenvector matrix
     and write one binary Nek field file per mode, prefix 'm01', 'm02', ...
-    (the reference's outpost_OTDmodes)."""
+    (the reference's outpost_OTDmodes). On a rank's block every rank calls
+    it, and rank 0 writes the gathered modes on the global mesh; every rank
+    returns the paths once the files are there."""
     from .utils.fldfile import write_fld
 
+    part = mesh.part
     w, eigvec = np.linalg.eig(np.asarray(lr))
     order = np.argsort(-w.real, kind="stable")
     ev = np.asarray(eigvec[:, order].real)  # [r (basis), r (mode)]
-    u = perts.u.cpu().numpy()  # [r, ndim, ...]
-    p = perts.p.cpu().numpy()  # [r, ...2]
-    modes_u = np.einsum("jr,j...->r...", ev, u)
-    modes_p = np.einsum("jr,j...->r...", ev, p)
-    os.makedirs(outdir, exist_ok=True)
-    paths = []
-    for i in range(u.shape[0]):
-        path = os.path.join(outdir, f"m{i + 1:02d}{case}0.f{counter:05d}")
-        write_fld(path, mesh=mesh, u=modes_u[i], p=modes_p[i], time=time)
-        paths.append(path)
+    u, p = (gather_field(f, part) for f in (perts.u, perts.p))  # [r, ndim, ...], [r, ...2]
+    paths = [os.path.join(outdir, f"m{i + 1:02d}{case}0.f{counter:05d}")
+             for i in range(perts.u.shape[0])]
+    if part is None or part.is_root:
+        u, p = u.cpu().numpy(), p.cpu().numpy()
+        modes_u = np.einsum("jr,j...->r...", ev, u)
+        modes_p = np.einsum("jr,j...->r...", ev, p)
+        os.makedirs(outdir, exist_ok=True)
+        whole = mesh if part is None else part.global_mesh
+        for i, path in enumerate(paths):
+            write_fld(path, mesh=whole, u=modes_u[i], p=modes_p[i], time=time)
+    if part is not None:
+        part.from_root(1.0)  # every rank returns once the files are there
     return paths
 
 
 def save_otd_restart(outdir: str, perts: PertState, base: FlowState,
-                     counter: int = 1, case: str = "otd") -> str:
+                     counter: int = 1, case: str = "otd", part=None) -> str:
     """Write the full OTD basis (and the co-evolved base) as a restart
-    checkpoint, atomically (a kill mid-write leaves the last one whole)."""
+    checkpoint, atomically (a kill mid-write leaves the last one whole).
+    part: the `Partition` of a rank's block; every rank calls it, rank 0
+    writes the gathered fields in the one-process layout, and every rank
+    returns once the file is there."""
     path = os.path.join(outdir, f"rst{case}0.f{counter:05d}.npz")
     data = {}
     for f in dataclasses.fields(perts):
-        data["pert_" + f.name] = getattr(perts, f.name).cpu().numpy()
+        data["pert_" + f.name] = gather_field(getattr(perts, f.name), part)
     for f in dataclasses.fields(base):
         v = getattr(base, f.name)
-        data["base_" + f.name] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-    os.makedirs(outdir, exist_ok=True)
-    tmp = path + ".tmp.npz"  # savez appends '.npz' unless the name ends with it
-    np.savez_compressed(tmp, **data)
-    os.replace(tmp, path)
+        whole = isinstance(v, torch.Tensor) and v.dim() > 0
+        data["base_" + f.name] = gather_field(v, part) if whole else v
+    if part is None or part.is_root:
+        data = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                for k, v in data.items()}
+        os.makedirs(outdir, exist_ok=True)
+        tmp = path + ".tmp.npz"  # savez appends '.npz' unless the name ends with it
+        np.savez_compressed(tmp, **data)
+        os.replace(tmp, path)
+    if part is not None:
+        part.from_root(1.0)
     return path
 
 
@@ -320,11 +360,14 @@ def _max_counter(outdir: str, prefix: str) -> int:
     return best
 
 
-def load_otd_restart(path: str, perts_tmpl: PertState, base_tmpl: FlowState):
-    """Resume from a save_otd_restart checkpoint: (perts, base)."""
+def load_otd_restart(path: str, perts_tmpl: PertState, base_tmpl: FlowState, part=None):
+    """Resume from a save_otd_restart checkpoint: (perts, base). part: the
+    `Partition` of a rank's block (templates of the block); each rank keeps
+    its block of the file's whole fields."""
     def load(z, key, like):
         if isinstance(like, torch.Tensor):
-            return torch.as_tensor(z[key], dtype=like.dtype, device=like.device)
+            f = torch.as_tensor(z[key], dtype=like.dtype)
+            return shard_field(f, part) if part is not None and like.dim() else f.to(like.device)
         return type(like)(z[key])
 
     with np.load(path) as z:
@@ -364,8 +407,13 @@ def otd_analysis(
     `iorststep`, the OTD start deferred to `startstep`. ic_paths: OTDIC
     field files (see load_otd_ics). restart: resume from a save_otd_restart
     checkpoint. The solvers are built once for the run. stats: optional
-    dict, filled by every step as `step_lin` fills it."""
+    dict, filled by every step as `step_lin` fills it.
+
+    On a rank's block (`mesh.part`) every rank returns the same Lr history
+    and its blocks of the modes and the base; rank 0 writes the files, and
+    the counters that continue a restart's numbering are rank 0's."""
     fc = cfg.flow
+    part = mesh.part
     if init_perts is None and ic_paths:
         init_perts = load_otd_ics(mesh, cfg, ic_paths, r=opts.r, seed=seed)
     if init_perts is None:
@@ -373,7 +421,7 @@ def otd_analysis(
     perts = init_perts
     done = 0
     if restart is not None:
-        perts, base = load_otd_restart(restart, perts, base)
+        perts, base = load_otd_restart(restart, perts, base, part)
     solvers = otd_solvers(mesh, cfg, pc_e)
 
     # pre-advance the base alone until the OTD start step
@@ -385,16 +433,17 @@ def otd_analysis(
     lr_history = []
     f_ls = f_lr = None
     io_counter = rst_counter = 0
-    if outdir:
+    if outdir and (part is None or part.is_root):
         os.makedirs(outdir, exist_ok=True)
         mode = "a" if restart is not None else "w"
         f_ls = open(os.path.join(outdir, "Ls.dat"), mode)
         f_lr = open(os.path.join(outdir, "Lr.dat"), mode)
-        if restart is not None:
-            # continue past existing outputs: a resumed run never overwrites
-            # the checkpoint it was resumed from
-            io_counter = _max_counter(outdir, "m01otd0.f")
-            rst_counter = _max_counter(outdir, "rstotd0.f")
+    if outdir and restart is not None:
+        # continue past existing outputs: a resumed run never overwrites the
+        # checkpoint it was resumed from (rank 0's count, on every rank)
+        io_counter, rst_counter = (_max_counter(outdir, pre) for pre in ("m01otd0.f", "rstotd0.f"))
+        if part is not None:
+            io_counter, rst_counter = (int(part.from_root(c)) for c in (io_counter, rst_counter))
 
     def next_event(k):
         """Steps until the next cadence boundary after k evolved OTD steps
@@ -434,7 +483,7 @@ def otd_analysis(
                 outpost_otd_modes(mesh, perts, lr_np, outdir, counter=io_counter, time=t)
             if outdir and opts.iorststep and evolved % opts.iorststep == 0:
                 rst_counter += 1
-                save_otd_restart(outdir, perts, base, counter=rst_counter)
+                save_otd_restart(outdir, perts, base, counter=rst_counter, part=part)
     finally:
         if f_ls is not None:
             f_ls.close()

@@ -88,7 +88,8 @@ class CommLog:
 class _AllReduceSum(torch.autograd.Function):
     """A summed copy of x across the ranks. Its backward is the same sum:
     y = sum_r x_r on every rank, so the cotangent of each x_r is the sum of
-    every rank's cotangent of y."""
+    every rank's cotangent of y. Its forward-mode tangent is the sum too:
+    dy = sum_r dx_r, one all-reduce of the tangent (logged as every other)."""
 
     @staticmethod
     def forward(ctx, x, part):
@@ -98,6 +99,10 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.part.all_reduce(g.contiguous().clone()), None
+
+    @staticmethod
+    def jvp(ctx, dx, _):
+        return ctx.part.all_reduce(dx.contiguous().clone())
 
 
 @dataclasses.dataclass(eq=False)

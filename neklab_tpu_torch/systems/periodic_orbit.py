@@ -41,6 +41,7 @@ from ..models.linearized import (LinConfig, _explicit_lin_map, b_adjoint, pert_i
                                  step_lin)
 from ..models.precond import build_e_preconditioner
 from ..ops import sem
+from ..parallel.sharding import global_sum
 from ..utils.timestep import cfl_dt, horizon_steps
 from .fixed_point import Derived
 
@@ -120,7 +121,10 @@ class PeriodicOrbitSystem(NonlinearSystem):
 
 
 def _mass_dot(mesh: SemMesh, a: dict, b: dict) -> torch.Tensor:
-    return torch.sum(a["u"] * b["u"] * mesh.bm1) + torch.sum(a["theta"] * b["theta"] * mesh.bm1)
+    """<a, b>_B over u and theta, summed over every rank's block of a
+    partitioned mesh (one all-reduce)."""
+    return global_sum(mesh.part, torch.sum(a["u"] * b["u"] * mesh.bm1)
+                      + torch.sum(a["theta"] * b["theta"] * mesh.bm1))
 
 
 def _step_tangent_map(mesh: SemMesh, cfg: LinConfig, conv_cache, t, u, theta):

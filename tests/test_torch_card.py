@@ -7,7 +7,7 @@ recorded propagator's) and the forward mode of the kernel and the solves
 with an inflow lift, one forced linearized step, and element-partitioned
 runs on the card: two gloo ranks sharing it (their results, and their peak
 memory against one process's), and a one-rank NCCL group whose CGs capture
-their all-reduces.
+their all-reduces, also under forward mode.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -731,3 +731,34 @@ def test_one_rank_nccl_group_graphs_its_all_reduces(card, tmp_path):
     assert int(out["split_calls"]) > 0 and int(out["one_calls"]) == 0
     assert np.abs(out["split_u"] - out["one_u"]).max() <= 1e-10
     assert np.abs(out["split_p"] - out["one_p"]).max() <= 1e-8
+
+
+def test_one_rank_nccl_group_forward_mode_matches_cpu(card, tmp_path):
+    """Forward mode through a one-rank NCCL group's `advance` (the exact
+    Jacobian's matvec of tests/test_torch_newton.py's forced channel, 4 x 2
+    elements at order 4, 2 steps, 1e-12 solves) with every CG graphed,
+    against the same matvec on CPU tensors in one process: rel 1e-10."""
+    import torch_shard_workers as W
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.vectors import flow_vector
+
+    mesh = box_mesh(**W.FORCED_BOX, dtype=torch.float64, device="cpu")
+    y = mesh.x[1]
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    noise = lambda: torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen, dtype=mesh.dtype)
+    guess = mesh.vmask * sem.dsavg(mesh, torch.stack([0.7 * (1 - y**2), 0 * y]) + 0.05 * noise())
+    du = mesh.vmask * sem.dsavg(mesh, noise())
+    cfg = dict(viscosity=W.FORCED_NU, dt=0.05, vtol=1e-12, ptol=1e-12)
+    system = dict(tau=0.1, dt=0.05)
+    out = W.run_ranks("nccl_jvp", 1, str(tmp_path), dict(cfg=cfg, system=system,
+                                                         backend="nccl", device="cuda:0"),
+                      dict(guess=guess.numpy(), du=du.numpy()), timeout=300)
+    assert out["graphed"].all() and len(out["graphed"]) == 4
+    one = FixedPointSystem(mesh, LinConfig(flow=ns.FlowConfig(**cfg, forcing_fn=W.body_force)),
+                           exact_jacobian=True, **system)
+    want = one.jacobian(flow_vector(mesh, 0, u=guess)).matvec(flow_vector(mesh, 0, u=du))["u"]
+    assert float(want.abs().max()) > 1e-3
+    assert rel(torch.as_tensor(out["jvp"]), want) <= 1e-10
+

@@ -35,6 +35,19 @@ STEP_BOX = dict(nels=(8, 2), lims=((0.0, 2 * np.pi), (-1.0, 1.0)), bc=CHANNEL_BC
 # tests/test_precond.py:117-127's walled box
 WALLED3 = dict(nels=(3, 2, 2), lims=((0.0, 1.5), (0.0, 1.0), (0.0, 1.0)),
                bc={"x-": "W", "x+": "W", "y-": "W", "y+": "W", "z-": "W", "z+": "W"}, order=4)
+# tests/test_torch_newton.py's forced channel (body force 2 nu, fixed point
+# u = 1 - y^2), 4 x 2 elements at order 4: blocks for 2 and 4 ranks
+FORCED_NU = 0.1
+FORCED_BOX = dict(nels=(4, 2), lims=((0.0, 2.0), (-1.0, 1.0)), bc=CHANNEL_BC, order=4)
+# tests/test_torch_otd.py's Poiseuille channel (12 elements)
+OTD_BOX = dict(nels=(3, 4), lims=((0.0, 2 * np.pi), (-1.0, 1.0)), bc=CHANNEL_BC, order=4)
+
+
+def body_force(mesh, t, u, theta):
+    """The forced channel's constant body force (2 nu, 0)."""
+    f = torch.zeros((2,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=mesh.device)
+    f[0] = 2.0 * FORCED_NU
+    return f
 
 
 def run_ranks(job: str, size: int, workdir: str, args: dict | None = None,
@@ -273,7 +286,200 @@ def job_nccl(part, args, z, dev):
     return out
 
 
-JOBS = {"step": job_step, "propagate": job_propagate, "eigs": job_eigs, "nccl": job_nccl}
+def job_fwd_sum(part, args, z, dev):
+    """`Partition.sum` under forward mode: rank r sums row r of z["x"] with
+    the tangent row r of z["dx"]."""
+    import torch.autograd.forward_ad as fwAD
+
+    x, dx = (torch.as_tensor(z[k][part.rank], device=dev) for k in ("x", "dx"))
+    before = part.log.calls
+    with fwAD.dual_level():
+        primal, tangent = fwAD.unpack_dual(part.sum(fwAD.make_dual(x, dx)))
+    return {"sum": primal, "sum_tangent": tangent,
+            "sum_calls": np.asarray(part.log.calls - before)}
+
+
+def _gathered(part, vec: dict) -> dict:
+    """Every leaf of a vector whole on rank 0 (a replicated 0-d T as it is)."""
+    from neklab_tpu_torch.parallel import gather_field
+
+    return {k: gather_field(v, part) for k, v in vec.items()}
+
+
+def job_drivers(part, args, z, dev):
+    """Forward mode through `Partition.sum`; on the forced channel the
+    fixed-point system's response and its frozen and exact Jacobians'
+    matvec and rmatvec, and Newton with each (`newton_fixed_point_iteration`,
+    rank 0 writing residual.dat and timers.log)."""
+    from neklab_tpu_torch.analysis import newton_fixed_point_iteration
+    from neklab_tpu_torch.mesh.box import box_mesh
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig
+    from neklab_tpu_torch.parallel import gather_field, shard_field, shard_sem_mesh
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.vectors import flow_vector, flow_vector_space
+
+    out = job_fwd_sum(part, args, z, dev)
+    mesh = shard_sem_mesh(box_mesh(**FORCED_BOX, dtype=torch.float64, device="cpu"), part)
+    cfg = LinConfig(flow=FlowConfig(**args["forced_cfg"], forcing_fn=body_force))
+    space = flow_vector_space(mesh, 0)
+    vec = lambda key: flow_vector(mesh, 0, u=shard_field(z[key], part))
+    x, dx, w = vec("guess"), vec("du"), vec("w")
+    for name in ("frozen", "exact"):
+        sys_ = FixedPointSystem(mesh, cfg, exact_jacobian=name == "exact", **args["system"])
+        out[f"{name}_response"] = gather_field(sys_.response(x)["u"], part)
+        jac = sys_.jacobian(x)
+        before = part.log.calls
+        mv = jac.matvec(dx)
+        out[f"{name}_matvec_calls"] = np.asarray(part.log.calls - before)
+        rmv = jac.rmatvec(w)
+        out[f"{name}_matvec"] = gather_field(mv["u"], part)
+        out[f"{name}_rmatvec"] = gather_field(rmv["u"], part)
+        out[f"{name}_identity"] = np.asarray([space.dot(mv, w), space.dot(dx, rmv)])
+        res = newton_fixed_point_iteration(
+            sys_, x, space, outdir=os.path.join(args["outdir"], name, f"rank{part.rank}"),
+            **args["newton"])
+        out[f"{name}_history"] = np.asarray(res.history)
+        out[f"{name}_iterations"] = np.asarray(res.iterations)
+        out[f"{name}_x"] = gather_field(res.x["u"], part)
+
+    return out
+
+
+def job_analyses(part, args, z, dev):
+    """On the channel box: transient growth
+    (`transient_growth_analysis_fixed_point`, rank 0 writing
+    singular_spectrum.dat and timers.log) with the triplet identity, the
+    resolvent's matvec and rmatvec with their GMRES counts, the projected
+    propagator's projection, matvec and rmatvec."""
+    from neklab_tpu_torch.analysis import transient_growth_analysis_fixed_point
+    from neklab_tpu_torch.krylov.space import tree_axpby
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.linops.projected import ProjectedPropagator
+    from neklab_tpu_torch.linops.resolvent import Resolvent, complex_pair_space
+    from neklab_tpu_torch.mesh.box import box_mesh
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig
+    from neklab_tpu_torch.parallel import gather_field, shard_field, shard_sem_mesh
+    from neklab_tpu_torch.vectors import flow_vector_space
+
+    out = {}
+    mesh = shard_sem_mesh(box_mesh(**STEP_BOX, dtype=torch.float64, device="cpu"), part)
+    cfg = LinConfig(flow=FlowConfig(**args["lin_cfg"]))
+    base = shard_field(z["base"], part)
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+
+    A = ExponentialPropagator(mesh, cfg, base, tau=args["tg_tau"], dt=cfg.flow.dt)
+    space = flow_vector_space(mesh, 0)
+    res = transient_growth_analysis_fixed_point(
+        A, space, outdir=os.path.join(args["outdir"], "tg", f"rank{part.rank}"), **args["tg"])
+    v, u = res.optimal_inputs[0], res.optimal_outputs[0]
+    s = float(res.sigma[0])
+    err = tree_axpby(1.0, A.matvec(v), -s, u)
+    out.update(tg_sigma=res.sigma, tg_residuals=res.residuals, tg_n_matvec=np.asarray(res.n_matvec),
+               tg_triplet=np.asarray(space.norm(err) / s), tg_in=gather_field(v["u"], part),
+               tg_out=gather_field(u["u"], part))
+
+    R = Resolvent(mesh, cfg, base, **args["resolvent"])
+    pair = lambda key: {p: {"u": shard_field(z[f"{key}_{p}"], part), "theta": th}
+                        for p in ("re", "im")}
+    f, g = pair("f"), pair("g")
+    rf = R.matvec(f)
+    counts = [R.last_gmres_matvecs]
+    rg = R.rmatvec(g)
+    out["res_gmres"] = np.asarray(counts + [R.last_gmres_matvecs])
+    space = complex_pair_space(mesh, 0)
+    out["res_identity"] = np.asarray([space.dot(rf, g), space.dot(f, rg)])
+    for p in ("re", "im"):
+        out[f"res_matvec_{p}"] = gather_field(rf[p]["u"], part)
+        out[f"res_rmatvec_{p}"] = gather_field(rg[p]["u"], part)
+
+    A = ExponentialPropagator(mesh, cfg, base, tau=args["proj_tau"], dt=cfg.flow.dt)
+    P = ProjectedPropagator(A, args["alpha"])
+    v, w = ({"u": shard_field(z[k], part), "theta": th} for k in ("pv", "pw"))
+    before = part.log.calls
+    pv = P.project(v)["u"]
+    out["proj_calls"] = np.asarray(part.log.calls - before)
+    out["proj_project"] = gather_field(pv, part)
+    out["proj_matvec"] = gather_field(P.matvec(v)["u"], part)
+    out["proj_rmatvec"] = gather_field(P.rmatvec(w)["u"], part)
+    return out
+
+
+def job_orbits(part, args, z, dev):
+    """On the forced channel the periodic orbit's bordered Jacobian (matvec
+    with dT != 0, rmatvec, dPhi/dT) and the monodromy; on tests/test_otd.py's
+    channel `otd_analysis` from OTDIC files (rank 0 writing the files, the
+    restart loaded again on every rank) and from `_random_modes`."""
+    from neklab_tpu_torch import otd
+    from neklab_tpu_torch.mesh.box import box_mesh
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig, initial_state
+    from neklab_tpu_torch.parallel import gather_field, shard_field, shard_sem_mesh
+    from neklab_tpu_torch.systems.periodic_orbit import MonodromyOperator, PeriodicOrbitSystem
+    from neklab_tpu_torch.vectors import ext_flow_vector
+
+    out = {}
+    mesh = shard_sem_mesh(box_mesh(**FORCED_BOX, dtype=torch.float64, device="cpu"), part)
+    fcfg = LinConfig(flow=FlowConfig(**args["forced_cfg"], forcing_fn=body_force))
+    sys_ = PeriodicOrbitSystem(mesh, fcfg, t_guess=args["T"], nsteps=args["upo_nsteps"])
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+    ext = lambda key, T: ext_flow_vector(mesh, 0, u=shard_field(z[key], part), theta=th, T=T)
+    x, dx, vv = ext("upo_x", args["T"]), ext("upo_du", 0.7), ext("upo_dv", -0.4)
+    jac = sys_.jacobian(x)
+    out.update({f"upo_matvec_{k}": val for k, val in _gathered(part, jac.matvec(dx)).items()})
+    out.update({f"upo_rmatvec_{k}": val for k, val in _gathered(part, jac.rmatvec(vv)).items()})
+    out["upo_period_dir"] = gather_field(jac.period_dir()["u"], part)
+    mono = MonodromyOperator(sys_, x)
+    out["mono_matvec"] = gather_field(mono.matvec(dx)["u"], part)
+    out["mono_rmatvec"] = gather_field(mono.rmatvec(vv)["u"], part)
+
+    mesh = shard_sem_mesh(box_mesh(**OTD_BOX, dtype=torch.float64, device="cpu"), part)
+    ocfg = LinConfig(flow=FlowConfig(**args["otd_cfg"]))
+    y = mesh.x[1]
+    obase = initial_state(mesh, ocfg.flow, u=torch.stack([1 - y**2, 0 * y]))
+    opts = otd.OtdOpts(**args["otd_opts"])
+    outdir = os.path.join(args["outdir"], "otd", f"rank{part.rank}")
+    res = otd.otd_analysis(mesh, ocfg, opts, obase, args["otd_nsteps"], outdir=outdir,
+                           ic_paths=args["ic_paths"])
+    out["otd_files_lr"] = np.stack([lr for _, lr in res.lr_history])
+    out["otd_files_u"] = gather_field(res.perts.u, part)
+    rst = os.path.join(args["outdir"], "otd", "rank0", "rstotd0.f00001.npz")
+    back, _ = otd.load_otd_restart(rst, res.perts, res.base, part)
+    out["otd_restart_diff"] = np.asarray(max(float((getattr(back, k) - getattr(res.perts, k))
+                                                   .abs().max()) for k in ("u", "p", "ulag")))
+    res = otd.otd_analysis(mesh, ocfg, opts, obase, args["otd_nsteps"], seed=args["otd_seed"])
+    out["otd_random_lr"] = np.stack([lr for _, lr in res.lr_history])
+    out["otd_random_start"] = gather_field(otd._random_modes(mesh, opts.r, args["otd_seed"]), part)
+    return out
+
+
+def job_nccl_jvp(part, args, z, dev):
+    """One NCCL rank on a card: the exact Jacobian's matvec on the forced
+    channel, forward mode through the split `advance` with every CG
+    graphed (the pressure mean's and the range projections' all-reduces
+    carry the tangent)."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.navier_stokes import FlowConfig
+    from neklab_tpu_torch.parallel import gather_field, shard_field, shard_sem_mesh
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.vectors import flow_vector
+
+    mesh = shard_sem_mesh(box_mesh(**FORCED_BOX, dtype=torch.float64, device="cpu"), part)
+    cfg = LinConfig(flow=FlowConfig(**args["cfg"], forcing_fn=body_force))
+    system = FixedPointSystem(mesh, cfg, exact_jacobian=True, **args["system"])
+    x, dx = (flow_vector(mesh, 0, u=shard_field(z[k], part)) for k in ("guess", "du"))
+    mv = system.jacobian(x).matvec(dx)
+    (d,) = system.derived.values()
+    graphed = [d.psolves[o].cg.graphed for o in d.psolves] + \
+        [d.vsolves[o][0].cg.graphed for o in d.vsolves]
+    return {"jvp": gather_field(mv["u"], part), "graphed": np.asarray(graphed)}
+
+
+JOBS = {"step": job_step, "propagate": job_propagate, "eigs": job_eigs, "nccl": job_nccl,
+        "fwd_sum": job_fwd_sum, "drivers": job_drivers, "analyses": job_analyses,
+        "orbits": job_orbits, "nccl_jvp": job_nccl_jvp}
 
 
 def main(argv) -> None:
