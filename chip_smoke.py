@@ -61,7 +61,10 @@ Phases:
   8 cylinder the cylinder wake at Re=50, `medium` (examples/
              cylinder_stability.py), f32: 8000 spin-up steps, Newton to
              |F| < 2e-4, the eigensolve at tau = 1; |mu_1| beside the
-             reference's oracle 1.0156 +- 1e-4
+             reference's oracle 1.0156 +- 1e-4; (a) its propagator with
+             recycle 0 and 8 (Nek5000's residual projection): ms/step
+             sustained and floor, pressure iterations per post-ramp step,
+             the outputs' difference
   9 resolvent  examples/resolvent_sweep.py at its full mesh, f32: the
              sweep's two end frequencies, the Hermitian identity; the
              Stokes oracle, f64
@@ -79,14 +82,17 @@ Phases:
   14 box3d   bench.py:312-345's 12^3-element duct at order 5, f32: ms/step
              sustained and floor, the adjoint's ms/step and tape bytes, CG
              iterations, the preconditioner's and the Jacobi diagonal's
-             build, peak memory; the CGs inside maxit, the B-adjoint identity
+             build, peak memory; the CGs inside maxit, the B-adjoint identity;
+             (b) recycle 0 and 8 as in (a)
   15 channel3d  plane Poiseuille at Re = 500 extruded spanwise, (4, 5, 2) at
              order 6, f64: the two leading eigenvalues vs the analytic
              shear modes -nu (pi/2)^2 (double, reported once) and -nu pi^2,
-             the driver's files
+             the driver's files; (c) one matvec with recycle 0 and 8: s per
+             matvec, pressure iterations per step
   16 sharded element-partitioned runs on the one card (this script with
              `--rank JOB RANK SIZE DIR` is one rank): one NCCL rank, box2d
-             131k f32, 20 steps with graphed CGs vs unsplit; four gloo ranks,
+             131k f32, 20 steps with graphed CGs vs unsplit, and (d) the
+             same with recycle 8, all-reduces per step; four gloo ranks,
              box2d 131k and box3d, f64, propagate and its adjoint vs one
              process and the B-adjoint identity; four gloo ranks, the
              eigensolve of tests/test_sharding.py:199-245 (dt 0.4, kdim 24,
@@ -103,8 +109,10 @@ After phases 0-2 and 5, which time the card alone, the main process starts
 one process per group of SIDE (this script with `--side oracle,resolvent`,
 ...) and runs MAIN_THEN beside them, the card-vs-CPU phases 3-3d first:
 most solves are bound by the host's launch rate, one core each, and leave
-the card idle most of the time. `--only a,b,...` runs
-the named phases one after another in this process (to time them alone);
+the card idle most of the time. Phase 7 runs in a side group on phase 6's
+mu_1, which the main process writes to .scratch/mu1.json. `--only a,b,...`
+runs the named phases one after another in this process (to time them
+alone; `growth` after `re7500`);
 `--eigs-depth channel3d|re7500 kdim:tol:maxiter ...` times phase 15's or
 phase 6's eigensolve at other Krylov dimensions (`eigs_depth`). The
 script uses one card: it makes only the first visible card visible to
@@ -184,6 +192,55 @@ def device_ms(fn, calls: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+# Nek5000's residual projection (`recycle=`): the slots of the measured runs
+RECYCLE = 8
+
+
+def recycled_propagator(mesh, prop, u0, nsteps: int, tol: float, reps: int = 1) -> dict:
+    """A propagator with recycle=0 and recycle=RECYCLE, in one process and
+    in turns (0, R, R, 0), with bench.py:73-106's protocol: ms/step
+    sustained (the state B-normalized before every call; `reps` calls per
+    turn after a warm-up) and at the floor (the state scaled to 1e-8, where
+    the solves exit at once), the pressure CG iterations per post-ramp step
+    (the ramp's two solves are not recycled), and the relative difference of
+    M u0 with each, asserted under 1e3 tol: the bound of
+    tests/test_stepper.py::test_recycled_solves_match_plain (1e-7 at ptol
+    1e-10) at this run's tolerance tol = max(vtol, ptol). prop(u, recycle,
+    stats) -> M u with the solvers built once. Returns the numbers and the
+    helmholtz2d runs (device counter) of the recycled calls."""
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
+
+    def bnorm(u):
+        return u / sem.mass_dot(mesh, u, u).sqrt().clamp_min(torch.finfo(u.dtype).tiny)
+
+    mu = {r: prop(u0, r, None) for r in (0, RECYCLE)}  # the warm-up too
+    diff = rel(mu[RECYCLE], mu[0])
+    out = {"nsteps": nsteps, "rel_diff": diff, "rel_diff_bound": 1e3 * tol}
+    runs = 0
+    for label, scale in (("sustained", 1.0), ("floor", 1e-8)):
+        state = {r: scale * bnorm(mu[r]) for r in mu}
+        ms, iters = {r: [] for r in mu}, {r: [] for r in mu}
+        for r in (0, RECYCLE, RECYCLE, 0):
+            stats = {}
+            n0 = hk.launches(mesh.device)  # synchronizes
+            t1 = time.time()
+            for _ in range(reps):
+                state[r] = scale * bnorm(prop(state[r], r, stats))
+            torch.cuda.synchronize()
+            ms[r].append(1e3 * (time.time() - t1) / (reps * nsteps))
+            if r:
+                runs += hk.launches(mesh.device) - n0
+            p = np.asarray(stats["pressure"]).reshape(reps, nsteps)[:, 2:]
+            iters[r].append(float(p.mean()))
+        for r in mu:
+            out[f"{label}_ms_per_step_recycle{r}"] = ms[r]
+            out[f"{label}_pressure_iters_post_ramp_recycle{r}"] = statistics.mean(iters[r])
+    assert diff <= 1e3 * tol, (diff, tol)
+    assert all(bool(torch.isfinite(m).all()) for m in mu.values())
+    return out, runs
 
 
 def wavy(x):
@@ -875,8 +932,8 @@ NEV_RE7500, NEV_RE500, NEV_CYLINDER = 2, 2, 2
 TOL_RE7500 = 1e-5
 # the Krylov expansion tests its projected problem every CHECK_EVERY columns
 # (the driver's default is 8), so a converged eigensolve stops within one
-# matvec of convergence instead of up to seven past it (phases 4, 6, 8 and
-# 16d, as phase 10's UPO_CHECK; PERF.md section 4)
+# matvec of convergence instead of up to seven past it (phases 4, 6, 8, 15
+# and 16d, as phase 10's UPO_CHECK; PERF.md section 4)
 CHECK_EVERY = 2
 
 
@@ -1010,16 +1067,20 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
     (nev = NEV_CYLINDER, tol 1e-5). Asserts Newton's convergence, an
     unstable leading mode and a shedding frequency 0.6 < omega < 0.9;
     prints |mu_1| beside the oracle band (f32 on this mesh is not expected
-    to reach it). Returns the kernel runs of each part, from the device
-    counter set to zero before it. state: where it leaves the spun-up
-    state, the system and the Newton base flow for phase 16e."""
+    to reach it). Then (a): the eigensolve's propagator (50 steps per
+    call) with recycle 0 and RECYCLE (`recycled_propagator`: ms/step
+    sustained and floor, pressure iterations per post-ramp step, the two
+    outputs' difference). Returns the kernel runs of each part, from the
+    device counter set to zero before it. state: where it leaves the
+    spun-up state, the system and the Newton base flow for phase 16e."""
     from neklab_tpu_torch.analysis import (linear_stability_analysis_fixed_point,
                                            newton_fixed_point_iteration)
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
-    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.models.linearized import LinConfig, propagate
     from neklab_tpu_torch.models.navier_stokes import FlowConfig, advance, initial_state
     from neklab_tpu_torch.models.precond import build_e_preconditioner
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
+    from neklab_tpu_torch.ops import sem
     from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
     from neklab_tpu_torch.vectors import flow_vector, flow_vector_space
 
@@ -1062,6 +1123,20 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
     runs["eigensolve"] = hk.launches(dev)
     seconds["eigensolve"] = time.time() - t1
 
+    # (a) recycling on the eigensolve's propagator at full width, 50 steps
+    # per call, from a C0 field of the seed
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=dtype, device=dev)
+    prop = lambda u, r, stats: propagate(
+        mesh, expA.cfg, expA.base_u, th, u, th, 50, pc_e=expA.pc_e, vdiag=expA.vdiag,
+        psolves=expA.psolves, vsolves=expA.vsolves, stats=stats, recycle=r)[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    u0 = mesh.vmask * sem.dsavg(mesh, torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen,
+                                                  dtype=dtype, device=dev))
+    hk.reset_launches(dev)
+    recycled, runs["recycled propagator"] = recycled_propagator(
+        mesh, prop, u0, 50, max(fc.vtol, fc.ptol))
+
     mu1 = complex(eres.multipliers[0])
     lam1 = complex(eres.eigvals[0])
     omega = abs(lam1.imag)
@@ -1076,7 +1151,8 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
           eigvals=[[v.real, v.imag] for v in eres.eigvals], residuals=eres.residuals.tolist(),
           mu1=[mu1.real, mu1.imag], mu1_abs=abs(mu1), sigma=lam1.real, omega=omega,
           oracle_mu1_abs=ORACLE_MU1, oracle_band=ORACLE_BAND,
-          in_oracle_band=abs(abs(mu1) - ORACLE_MU1) <= ORACLE_BAND, kernel_runs=runs)
+          in_oracle_band=abs(abs(mu1) - ORACLE_MU1) <= ORACLE_BAND, kernel_runs=runs,
+          recycled=recycled)
     assert nres.converged, nres.history
     assert len(system.derived) == 1  # one solver set: the fixed dt
     assert abs(mu1) > 1.0, mu1
@@ -1922,7 +1998,9 @@ def box3d_phase(dev):
     and the Jacobi diagonal's build seconds and the diagonal's peak memory
     above what was allocated before it, and the phase's peak device
     memory. Asserts every output finite, every CG converged inside its
-    maxit, and <M u, v>_B = <u, M* v>_B to 1e-3 (f32 solves at 1e-5)."""
+    maxit, and <M u, v>_B = <u, M* v>_B to 1e-3 (f32 solves at 1e-5).
+    (b): the same propagator with recycle 0 and RECYCLE
+    (`recycled_propagator`)."""
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.models.linearized import LinConfig, make_adjoint_propagator, propagate
     from neklab_tpu_torch.models.precond import build_e_preconditioner
@@ -1988,6 +2066,12 @@ def box3d_phase(dev):
     s_sus, iters_sus, state = timed(fresh(), 1.0)
     assert bool(torch.isfinite(state).all())
     s_floor, iters_floor, _ = timed(1e-8 * state, 1e-8)
+    # (b) recycling on the same propagator and solvers
+    recycled, _ = recycled_propagator(
+        mesh, lambda u, r, stats: propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc,
+                                            vdiag=vdiag, psolves=psolves, vsolves=vsolves,
+                                            stats=stats, recycle=r)[0],
+        fresh(), nsteps, max(fc.vtol, fc.ptol))
 
     t1 = time.time()
     adj = make_adjoint_propagator(mesh, cfg, base_u, th, nsteps, pc_e=pc, vdiag=vdiag,
@@ -2010,7 +2094,8 @@ def box3d_phase(dev):
           adjoint_cg_iters_per_step=adj_iters, adjoint_build_s=rec_s, tape_bytes=adj.tape_bytes,
           max_cg_iters={k: max(v) for k, v in every.items()}, pc_build_s=pc_s,
           local_diagonal_build_s=diag_s, local_diagonal_peak_bytes=diag_peak,
-          peak_device_bytes=peak, b_adjoint_identity_rel=identity, lhs=lhs, rhs=rhs)
+          peak_device_bytes=peak, b_adjoint_identity_rel=identity, lhs=lhs, rhs=rhs,
+          recycled=recycled)
     assert max(every["helmholtz"]) < fc.vmaxit and max(every["pressure"]) < fc.pmaxit, every
     assert identity <= 1e-3, (lhs, rhs)
 
@@ -2040,9 +2125,13 @@ def channel3d_phase(dev):
     (tests/test_torch_3d_propagator.py, in both packages). Asserts the
     leading eigenvalue within 1e-5 of lambda_1, the second within 1e-5 of
     lambda_1 or of -nu pi^2, and both Ritz residuals below the solve's
-    tol."""
+    tol. Then (c): one matvec of the same propagator with recycle 0 and
+    RECYCLE from one C0 field of the seed: seconds per matvec, pressure
+    iterations per step, the two outputs' difference under 1e3 ptol."""
     from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh,
                                   flow_vector_space, linear_stability_analysis_fixed_point)
+    from neklab_tpu_torch.models.linearized import propagate
+    from neklab_tpu_torch.ops import sem
 
     t0 = time.time()
     mesh = box_mesh((4, 5, 2), ((0.0, 2 * np.pi), (-1.0, 1.0), (0.0, 2.0)), CHANNEL3, order=6,
@@ -2055,7 +2144,28 @@ def channel3d_phase(dev):
     outdir = os.path.join(ROOT, ".scratch", "channel3d")
     res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
                                                 kdim=CHANNEL3D_KDIM, nev=2, tol=CHANNEL3D_TOL,
-                                                maxiter=2, outdir=outdir)
+                                                maxiter=2, outdir=outdir,
+                                                check_every=CHECK_EVERY)
+    # (c) one matvec with recycle 0 and RECYCLE from the same start
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    u0 = mesh.vmask * sem.dsavg(mesh, torch.randn((3,) + tuple(mesh.bm1.shape), generator=gen,
+                                                  dtype=mesh.dtype, device=dev))
+    recycled, mv = {}, {}
+    for r in (0, RECYCLE):
+        stats = {}
+        torch.cuda.synchronize()
+        t1 = time.time()
+        mv[r] = propagate(mesh, prop.cfg, prop.base_u, th, u0, th, prop.nsteps, pc_e=prop.pc_e,
+                          vdiag=prop.vdiag, psolves=prop.psolves, vsolves=prop.vsolves,
+                          stats=stats, recycle=r)[0]
+        torch.cuda.synchronize()
+        recycled[f"s_per_matvec_recycle{r}"] = time.time() - t1
+        recycled[f"pressure_iters_per_step_recycle{r}"] = statistics.mean(stats["pressure"])
+        recycled[f"pressure_iters_post_ramp_recycle{r}"] = statistics.mean(stats["pressure"][2:])
+    recycled["rel_diff"] = rel(mv[RECYCLE], mv[0])
+    recycled["rel_diff_bound"] = 1e3 * 1e-10
     lam1, lam3 = -(1 / re) * np.pi**2 * np.array([0.25, 1.0])
     dist = np.array([abs(res.eigvals[0] - lam1),
                      min(abs(res.eigvals[1] - lam1), abs(res.eigvals[1] - lam3))])
@@ -2063,11 +2173,13 @@ def channel3d_phase(dev):
     phase("channel3d", t0, nel=mesh.nel, dt=prop.dt, nsteps=prop.nsteps,
           eigvals=[[v.real, v.imag] for v in res.eigvals], oracle=[lam1, lam3],
           dist=dist.tolist(), residuals=res.residuals.tolist(), n_matvec=res.n_matvec,
-          seconds=res.elapsed, s_per_matvec=res.elapsed / res.n_matvec, files=files)
+          seconds=res.elapsed, s_per_matvec=res.elapsed / res.n_matvec, files=files,
+          recycled=recycled)
     assert {"dir_eigenspectrum.npy", "dirmode0.f00001.npz", "dirmode0.f00002.npz",
             "timers.log"} <= set(files), files
     assert np.all(dist <= 1e-5), dist
     assert np.all(res.residuals < CHANNEL3D_TOL), res.residuals
+    assert recycled["rel_diff"] <= recycled["rel_diff_bound"], recycled
 
 
 # ---------------------------------------------------------------------------
@@ -2252,7 +2364,8 @@ def rank_eigs(part, dev, work: str) -> dict:
 def rank_nccl(part, dev, work: str) -> dict:
     """The one NCCL rank of phase 16 (a): box2d 131k in f32, 20 linearized
     steps through shard_sem_mesh -> propagate with graphed CGs, in turns
-    with the same steps unsplit in this process."""
+    with the same steps unsplit in this process; and (d) the same with
+    recycle=RECYCLE, split and unsplit, in turns."""
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.models.linearized import LinConfig, propagate
     from neklab_tpu_torch.models.precond import build_e_preconditioner
@@ -2275,11 +2388,15 @@ def rank_nccl(part, dev, work: str) -> dict:
         u0 = _c0_pair(gm, 1)[0].to(dev)
         graphed = [psolves[o].cg.graphed for o in orders] + [vsolves[o][0].cg.graphed
                                                              for o in orders]
-        prop = lambda u, m=mesh, pc=pc, ps=psolves, vs=vsolves, b=base, th=th, s=None: propagate(
-            m, cfg, b, th, u, th, nsteps, pc_e=pc, psolves=ps, vsolves=vs, stats=s)[0]
-        runs[name] = dict(prop=prop, u0=u0, graphed=graphed)
-    out, times = {}, {"split": [], "one": []}
-    for order in ("split", "one", "one", "split", "split", "one"):  # in turns
+        for k in (0, RECYCLE):
+            prop = lambda u, m=mesh, pc=pc, ps=psolves, vs=vsolves, b=base, th=th, s=None, k=k: \
+                propagate(m, cfg, b, th, u, th, nsteps, pc_e=pc, psolves=ps, vsolves=vs,
+                          stats=s, recycle=k)[0]
+            runs[name + (f"_r{k}" if k else "")] = dict(prop=prop, u0=u0, graphed=graphed)
+    out, times = {}, {name: [] for name in runs}
+    # in turns; (d) with recycle=RECYCLE beside
+    for order in ("split", "one", "one", "split", "split", "one", f"split_r{RECYCLE}",
+                  f"one_r{RECYCLE}", f"one_r{RECYCLE}", f"split_r{RECYCLE}"):
         r = runs[order]
         part.log.reset()
         hk.reset_launches(dev)
@@ -2293,10 +2410,12 @@ def rank_nccl(part, dev, work: str) -> dict:
                       "collectives_per_step": part.log.calls / nsteps,
                       "bytes_per_collective": part.log.bytes / max(part.log.calls, 1),
                       "cg_iters_per_step": {k: statistics.mean(v) for k, v in stats.items()}}
-    return {"mu_split": out["split"].pop("mu"), "mu_one": out["one"].pop("mu"),
+    mus = {name: o.pop("mu") for name, o in out.items()}
+    return {"mu_split": mus["split"], "mu_one": mus["one"],
+            "mu_split_recycled": mus[f"split_r{RECYCLE}"],
+            "mu_one_recycled": mus[f"one_r{RECYCLE}"],
             "stats": {"graphed_split": runs["split"]["graphed"],
-                      "graphed_one": runs["one"]["graphed"], "ms_per_step": times,
-                      "split": out["split"], "one": out["one"]}}
+                      "graphed_one": runs["one"]["graphed"], "ms_per_step": times, **out}}
 
 
 # phase 16f: small split cases after 16d, in the same four gloo ranks, each
@@ -2601,6 +2720,21 @@ def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
     assert err <= 1e-4, err  # f32, 1e-5 solves: the two differ in summation order
     assert st["split"]["kernel_runs"] > 0
     runs["sharded NCCL box2d, 1 rank (phase 16a)"] = st["split"]["kernel_runs"]
+    # (d): recycled, split against unsplit (as the plain pair) and against
+    # the plain split run (the bound of `recycled_propagator`)
+    split_r, one_r = (torch.as_tensor(out[f"mu_{k}_recycled"]) for k in ("split", "one"))
+    numbers["d_nccl_box2d_f32_recycled"] = dict(
+        rel_err=rel(split_r, one_r), rel_diff_to_plain=rel(split_r, torch.as_tensor(
+            out["mu_split"])), rel_diff_bound=1e3 * 1e-5,
+        collectives_per_step={k: st[k]["collectives_per_step"]
+                              for k in ("split", f"split_r{RECYCLE}")},
+        pressure_iters_per_step={k: st[k]["cg_iters_per_step"]["pressure"]
+                                 for k in ("split", f"split_r{RECYCLE}")})
+    assert rel(split_r, one_r) <= 1e-4, numbers["d_nccl_box2d_f32_recycled"]
+    assert rel(split_r, torch.as_tensor(out["mu_split"])) <= 1e3 * 1e-5
+    assert st[f"split_r{RECYCLE}"]["kernel_runs"] > 0
+    runs["sharded NCCL box2d recycled, 1 rank (phase 16a)"] = \
+        st[f"split_r{RECYCLE}"]["kernel_runs"]
 
     # (b, c, d): one set of four gloo ranks runs the three cases in turn;
     # this process builds the preconditioners first (the ranks load them)
@@ -2784,9 +2918,35 @@ def eigs_depth(dev, case: str, settings: list[str]) -> None:
 # four ranks do not share the card with phase 15; phase 16e follows phase 8
 # in its process, from phase 8's spun-up state
 MAIN_FIRST = ("kernel", "box2d")
-SIDE = ("upo", "oracle,box21k,box3d", "parity_r,parity_u,cylinder,cylinder_split",
+# phase 7 runs in the group that ends first, on phase 6's mu_1 from the
+# main process (MU1_FILE): the main process's chain, phase 15 last, ended
+# the script (PERF.md section 6, PR 10)
+SIDE = ("upo", "oracle,box21k,box3d", "parity_r,parity_u,cylinder,cylinder_split,growth",
         "sharded,otd", "bfs,resolvent")
-MAIN_THEN = ("parity", "nonlinear", "parity_3d", "re7500", "growth", "channel3d")
+MAIN_THEN = ("parity", "nonlinear", "parity_3d", "re7500", "channel3d")
+MU1_FILE = os.path.join(ROOT, ".scratch", "mu1.json")
+
+
+def write_mu1(mu1: complex) -> None:
+    """Phase 6's mu_1 for phase 7 in another process (written whole, then
+    renamed)."""
+    os.makedirs(os.path.dirname(MU1_FILE), exist_ok=True)
+    with open(MU1_FILE + ".tmp", "w") as f:
+        json.dump([mu1.real, mu1.imag], f)
+    os.replace(MU1_FILE + ".tmp", MU1_FILE)
+
+
+def read_mu1(timeout: float) -> complex:
+    """Phase 6's mu_1 from MU1_FILE, waiting up to timeout seconds for the
+    main process to write it."""
+    deadline = time.time() + timeout
+    while not os.path.exists(MU1_FILE):
+        if time.time() > deadline:
+            raise SystemExit(f"chip_smoke: no {MU1_FILE} (phase 6 did not end) after {timeout} s")
+        time.sleep(1.0)
+    with open(MU1_FILE) as f:
+        re_, im = json.load(f)
+    return complex(re_, im)
 
 
 def one_blas_thread() -> dict:
@@ -2814,16 +2974,20 @@ def run_phase(name: str, dev, state: dict):
         box2d_phase(dev)
     elif name == "re7500":
         launches, state["mu1"] = main_path_phase(dev)
+        write_mu1(state["mu1"])
         return {"direct eigensolve (phase 6)": launches}
     elif name == "growth":
-        launches, state["adjoint_launches"] = growth_phase(dev, state["mu1"])
+        # phase 6 ran in this process (--only) or runs in the main one (--side)
+        mu1 = state["mu1"] if "mu1" in state else read_mu1(timeout=900.0)
+        launches, state["adjoint_launches"] = growth_phase(dev, mu1)
         return {"transient growth (phase 7)": launches}
     elif name == "oracle":
         return {"projected eigensolve (phase 4)": oracle_phase(dev)["projected"]}
     elif name == "cylinder":
         runs = cylinder_phase(dev, state=state)
         return {"cylinder spin-up (phase 8)": runs["spin-up"],
-                "cylinder Newton + eigensolve (phase 8)": runs["newton"] + runs["eigensolve"]}
+                "cylinder Newton + eigensolve (phase 8)": runs["newton"] + runs["eigensolve"],
+                "cylinder recycled propagator (phase 8a)": runs["recycled propagator"]}
     elif name == "resolvent":
         runs = resolvent_phase(dev)
         return {"resolvent sweep and adjoint (phase 9)": runs["sweep"],
@@ -2889,6 +3053,8 @@ def main() -> None:
         for name in args[1].split(","):
             runs.update(run_phase(name, dev, state) or {})
         print("launches " + json.dumps(runs), flush=True)
+        if "adjoint_launches" in state:
+            print(f"adjoint_launches {state['adjoint_launches']}", flush=True)
         return
     if args[:1] == ["--only"]:
         # the named phases alone, one after another in this process
@@ -2927,6 +3093,8 @@ def main() -> None:
     # git ignores), so what it printed survives its being stopped
     logdir = os.path.join(ROOT, ".scratch")
     os.makedirs(logdir, exist_ok=True)
+    if os.path.exists(MU1_FILE):  # an earlier run's
+        os.remove(MU1_FILE)
     logs = {group: open(os.path.join(logdir, f"side_{i}.log"), "w+")
             for i, group in enumerate(SIDE)}
     side = {group: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", group],
@@ -2960,6 +3128,9 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: phases {group} failed (exit {proc.returncode})")
         (line,) = [ln for ln in outs[group].splitlines() if ln.startswith("launches ")]
         by_path.update(json.loads(line[len("launches "):]))
+        for ln in outs[group].splitlines():
+            if ln.startswith("adjoint_launches "):
+                state["adjoint_launches"] = int(ln.split()[1])
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(nvidia_smi(), flush=True)

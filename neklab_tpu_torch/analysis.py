@@ -135,7 +135,7 @@ def linear_stability_analysis_fixed_point(
 
     with timer(f"{prefix}_stability"):
         res = eigs(_TimedOp(exptA, "exptA"), space, nev=nev, kdim=kdim, tol=tol,
-                   maxiter=maxiter, adjoint=adjoint, v0=v0, callback=cb, seed=seed,
+                   maxiter=maxiter, which="lm", adjoint=adjoint, v0=v0, callback=cb, seed=seed,
                    checkpoint=checkpoint, checkpoint_every=checkpoint_every,
                    check_every=check_every)
     lam = np.log(res.eigvals.astype(complex)) / exptA.tau

@@ -178,6 +178,12 @@ def _load_krylov_state(path: str, space: VectorSpace, template: Vector, kmax: in
     return KrylovBasis(space, None, kmax, _stack=stack, _k=vk), H, n_mv
 
 
+def _sort_key(ev: np.ndarray, which: str) -> np.ndarray:
+    """The order of the wanted eigenvalues, largest key first: "lm" the
+    largest modulus, "lr" the largest real part."""
+    return np.abs(ev) if which == "lm" else ev.real
+
+
 def eigs(
     op: LinearOperator,
     space: VectorSpace,
@@ -185,6 +191,7 @@ def eigs(
     kdim: int = 128,
     tol: float = 1e-6,
     maxiter: int = 20,
+    which: str = "lm",
     adjoint: bool = False,
     v0: Vector | None = None,
     callback: Callable | None = None,
@@ -194,7 +201,10 @@ def eigs(
     tag: str = "",
     check_every: int = 8,
 ) -> EigsResult:
-    """Largest-modulus eigenpairs of `op` by Krylov-Schur-restarted Arnoldi.
+    """The wanted eigenpairs of `op` by Krylov-Schur-restarted Arnoldi:
+    `which` "lm" the largest modulus, "lr" the largest real part (the
+    restart keeps the Schur vectors of those, and the result is ordered by
+    them).
 
     maxiter counts restart cycles of dimension kdim; `callback(cycle,
     result)` runs after each cycle. `tol` bounds the Ritz residual
@@ -214,9 +224,11 @@ def eigs(
     file records a fingerprint of the problem (kdim, nev, seed, `tag`),
     checked at resume, and is deleted on success only: a solve that ends
     unconverged keeps it, to resume with a larger maxiter. The layout and
-    the fingerprint are the reference's (`which=lm`, the only order here),
-    so either package resumes the other's file; a seed names a different
-    start vector in each, which a resume does not use."""
+    the fingerprint (`which` included) are the reference's, so either
+    package resumes the other's file; a seed names a different start
+    vector in each, which a resume does not use."""
+    if which not in ("lm", "lr"):
+        raise ValueError(f"eigs: which={which!r}, not 'lm' or 'lr'")
     if adjoint:
         op = AdjointOperator(op)
     if v0 is None:
@@ -225,7 +237,7 @@ def eigs(
     if nrm == 0:
         raise ValueError("zero start vector")
 
-    fp = f"eigs;kdim={kdim};nev={nev};which=lm;seed={seed};tag={tag}"
+    fp = f"eigs;kdim={kdim};nev={nev};which={which};seed={seed};tag={tag}"
     n_mv = 0
     if checkpoint is not None and checkpoint_exists(checkpoint, space.part):
         V, H, n_mv = _load_krylov_state(checkpoint, space, v0, kdim + 1, fingerprint=fp)
@@ -244,7 +256,7 @@ def eigs(
         b = H[m, :m]
         evals, evecs = np.linalg.eig(S)
         res = np.abs(b @ evecs) / np.maximum(np.linalg.norm(evecs, axis=0), 1e-300)
-        order = np.argsort(-np.abs(evals), kind="stable")
+        order = np.argsort(-_sort_key(evals, which), kind="stable")
         return evals[order], res[order], evecs[:, order]
 
     for cycle in range(maxiter):
@@ -296,8 +308,11 @@ def eigs(
         S = H[:m, :m]
         b = H[m, :m]
         p = min(max(2 * nev, nev + 8), m - 2)
-        thresh = np.abs(evals_sorted)[p - 1]
-        sel = lambda re, im: np.hypot(re, im) >= thresh * (1 - 1e-12)
+        thresh = _sort_key(evals_sorted, which)[p - 1]
+        if which == "lm":
+            sel = lambda re, im: np.hypot(re, im) >= thresh * (1 - 1e-12)
+        else:
+            sel = lambda re, im: re >= thresh - 1e-12
         T, Q, sdim = scipy.linalg.schur(S, output="real", sort=sel)
         p_eff = int(sdim)
         if p_eff == 0 or p_eff >= m:

@@ -103,6 +103,10 @@ class KrylovBasis:
             raise IndexError(j)
         return {name: s[j % self.k] for name, s in self.stack.items()}
 
+    def vectors(self) -> list[Vector]:
+        """The filled slots, in order."""
+        return [self[j] for j in range(self.k)]
+
     def orthogonalize(self, w: Vector, passes: int = 2) -> tuple[Vector, np.ndarray]:
         """Classical Gram-Schmidt against the filled slots, `passes` times
         (CGS2 by default). Returns (w_orth, h[:k]), h the summed projections."""

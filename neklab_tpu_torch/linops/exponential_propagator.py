@@ -36,6 +36,7 @@ class ExponentialPropagator(LinearOperator):
         dt: float | None = None,
         precondition: bool = True,
         adjoint_tol_factor: float = 0.1,
+        recycle: int = 0,
     ):
         """The step is tau / ceil(tau / dt), with dt from the CFL target
         against the base flow unless given, so nsteps * dt == tau exactly.
@@ -52,7 +53,13 @@ class ExponentialPropagator(LinearOperator):
         tighter): adjoint Ritz values are more sensitive to the inner solves'
         truncation than direct ones (the reference's round-4 cylinder
         study). 1.0 gives the exact transpose of the matvec's own program.
-        The adjoint, with its own solvers, is built at the first rmatvec."""
+        The adjoint, with its own solvers, is built at the first rmatvec.
+
+        recycle: if > 0, matvec deflates each post-ramp pressure solve
+        against the last `recycle` solutions (Nek5000's residual
+        projection, param(93-95)): the same map to the solvers' tolerance,
+        with fewer E iterations. rmatvec is the adjoint of the recycle-free
+        program (the basis update is not linear in the data)."""
         self.mesh = mesh
         self.base_u = base_u
         self.base_theta = (
@@ -76,13 +83,14 @@ class ExponentialPropagator(LinearOperator):
         self.cfg_adj = self.cfg if f == 1.0 else dataclasses.replace(
             self.cfg, flow=dataclasses.replace(fc, vtol=fc.vtol * f, ptol=fc.ptol * f))
         self._adjoint: AdjointPropagator | None = None
+        self.recycle = int(recycle)
 
     def matvec(self, x: dict, stats: dict | None = None) -> dict:
         """stats: optional dict, filled as `propagate` fills it."""
         u, theta = propagate(
             self.mesh, self.cfg, self.base_u, self.base_theta, x["u"], x["theta"], self.nsteps,
             pc_e=self.pc_e, vdiag=self.vdiag, tdiags=self.tdiags, psolves=self.psolves,
-            vsolves=self.vsolves, stats=stats,
+            vsolves=self.vsolves, stats=stats, recycle=self.recycle,
         )
         return {"u": u, "theta": theta}
 

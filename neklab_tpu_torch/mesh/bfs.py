@@ -95,10 +95,11 @@ def bfs_mesh(
                       device=device)
 
 
-def bfs_inflow(mesh: SemMesh) -> torch.Tensor:
+def bfs_inflow(mesh: SemMesh, dtype=None) -> torch.Tensor:
     """Parabolic inflow profile u = 4 y (1 - y) on the inlet channel,
-    extended over the whole field (used only at Dirichlet nodes)."""
-    y = mesh.x[1]
+    extended over the whole field (used only at Dirichlet nodes), in dtype
+    (None: the mesh's)."""
+    y = mesh.x[1] if dtype is None else mesh.x[1].to(dtype)
     prof = torch.where(y > 0.0, 4.0 * y * (1.0 - y), torch.zeros_like(y))
     return torch.stack([prof, torch.zeros_like(prof)])
 

@@ -106,7 +106,7 @@ def _explicit_lin_map(mesh, cfg: LinConfig, conv_cache, theta_shape):
     return emap
 
 
-def adjoint_explicit_lin_map(mesh, cfg: LinConfig, conv_cache, theta_shape):
+def adjoint_explicit_lin_map(mesh, cfg: LinConfig, conv_cache, theta_shape, dtype=None):
     """Exact transpose of the explicit weak operator (`_explicit_lin_map`).
 
     For C0 fields the assembled bilinear form is a(u, v) = sum E(u) . v over
@@ -115,10 +115,12 @@ def adjoint_explicit_lin_map(mesh, cfg: LinConfig, conv_cache, theta_shape):
     here E is recorded once on autograd's tape from zero inputs (E is
     linear, so one tape serves every call) and each call is a backward of
     it: exact at the discrete level (dealiasing, metric terms, coupling
-    forces included). Returns eadj(v, psi) -> (w_u, w_theta)."""
+    forces included). dtype: the fields' (None: the mesh's). Returns
+    eadj(v, psi) -> (w_u, w_theta)."""
     emap = _explicit_lin_map(mesh, cfg, conv_cache, theta_shape)
     shape = tuple(mesh.bm1.shape)
-    inputs = tuple(torch.zeros(s, dtype=mesh.dtype, device=mesh.device, requires_grad=True)
+    dtype = mesh.dtype if dtype is None else dtype
+    inputs = tuple(torch.zeros(s, dtype=dtype, device=mesh.device, requires_grad=True)
                    for s in ((mesh.ndim,) + shape, tuple(theta_shape)))
     with torch.enable_grad():
         outputs = emap(*inputs)
@@ -164,6 +166,7 @@ def step_lin(
     force=None,
     source=None,
     emap=None,
+    pbasis=None,
 ) -> PertState:
     """One linearized BDF(order)/EXT(order) step (homogeneous BCs).
 
@@ -174,7 +177,11 @@ def step_lin(
     body force [ndim, ...] and scalar sources [nscal, ...] for this step
     (the reference's forcing hook: resolvent forcing, OTD rank coupling).
     emap: overrides the explicit operator (`adjoint_explicit_lin_map` for
-    adjoint OTD)."""
+    adjoint OTD). pbasis: an optional recycling basis of the pressure solve
+    (`navier_stokes.init_projection_basis`), threaded through and
+    returned: -> (state', pbasis'). Its update is nonlinear in the data, so
+    an adjoint records steps without one (both maps agree to the solvers'
+    tolerance)."""
     fc = cfg.flow
     dt = fc.dt
     g0, betas = _BDF[order]
@@ -197,7 +204,9 @@ def step_lin(
     dt_over_g0 = dt / (g0 * fc.rho)
     # warm start (incremental pressure only): the previous step's increment
     x0 = None if fc.pextrap >= 2 else state.p - state.plag[0]
-    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats)
+    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats, basis=pbasis)
+    if pbasis is not None:
+        dp, pbasis = dp
     du = stokes.pressure_correct_velocity(mesh, dp, dt_over_g0)
     u_new = ustar + du
     p_new = pstar + dp
@@ -214,7 +223,7 @@ def step_lin(
         theta_new = state.theta
 
     shift = lambda lag, cur: torch.cat([cur[None], lag[:-1]], dim=0)
-    return PertState(
+    out = PertState(
         u=u_new,
         p=p_new,
         theta=theta_new,
@@ -224,10 +233,12 @@ def step_lin(
         ntlag=shift(state.ntlag, n_t),
         plag=state.p[None],
     )
+    return out if pbasis is None else (out, pbasis)
 
 
 def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nsteps: int,
-              pc_e=None, vdiag=None, tdiags=None, psolves=None, vsolves=None, stats=None):
+              pc_e=None, vdiag=None, tdiags=None, psolves=None, vsolves=None, stats=None,
+              recycle: int = 0):
     """Linear map M: (u0, theta0) -> (u, theta) after nsteps of the
     linearized solver, with a BDF1/2/3 self-starting ramp and zero initial
     pressure — the exponential-propagator matvec exp(tau A), tau = nsteps*dt.
@@ -237,7 +248,14 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     orders (`navier_stokes.pressure_solvers`, `velocity_solvers` with
     `bdf_orders(cfg.flow, nsteps)`). A caller that applies the map repeatedly
     builds them once (the diagonals serve the ramp steps too); they are
-    built here when None. stats: as in `step_lin`, one entry per step."""
+    built here when None. stats: as in `step_lin`, one entry per step.
+
+    recycle: if > 0, each pressure solve after the BDF ramp is deflated
+    against the last `recycle` solutions (Nek5000's residual projection;
+    E changes with the ramp's orders, so their solves are not). The output
+    equals recycle=0's to the solvers' tolerance, but the map is no longer
+    linear in its program: the adjoint (`make_adjoint_propagator`) records
+    the recycle-free one."""
     fc = cfg.flow
     state = pert_initial(mesh, cfg, u0, theta0)
     tmax = min(fc.torder, 3)
@@ -249,11 +267,17 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     if vsolves is None:
         vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag3, tdiags3)
 
+    n_ramp = min(fc.torder - 1, nsteps)
+    pbasis = None
     for k in range(nsteps):
         order = min(k + 1, tmax)
         vsolve, tsolves = vsolves[order]
+        if recycle and k == n_ramp:
+            pbasis = ns.init_projection_basis(mesh, recycle)
         state = step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
-                         tsolves, conv_cache=ccache, stats=stats)
+                         tsolves, conv_cache=ccache, stats=stats, pbasis=pbasis)
+        if pbasis is not None:
+            state, pbasis = state
     return state.u, state.theta
 
 

@@ -18,7 +18,9 @@ linearized `propagate` does, and builds them only when the caller passes
 none. The state's `time` is a host float (a 0-d tensor when dt carries a
 forward-mode tangent, see `advance`). Unlike the reference, the
 velocity and scalar solves start from the extrapolated fields (see
-`step`). Cross-solve recycling (the reference's `recycle=`) is not ported.
+`step`). `advance(recycle=k)` deflates each pressure solve after the BDF
+ramp against the last k solutions (Nek5000's residual projection,
+`init_projection_basis`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from ..mesh.core import SemMesh
 from ..ops import sem
 from ..ops.tensor import is_dual, linear, tangent_part
+from ..parallel.sharding import global_sum
 from ..utils.timestep import cfl_dt, clamp_cfl
 from . import stokes
 from .solvers import PCG, linear_solve, local_diagonal
@@ -215,8 +218,77 @@ def helmholtz_solve(mesh, rhs_weak, h1, h2, mask, bc_val, tol, maxiter, diag, st
     return solve(rhs_weak, bc_val, stats=stats)
 
 
+# ---------------------------------------------------------------------------
+# cross-solve solution recycling (Nek5000 residual projection, param(93-95))
+# ---------------------------------------------------------------------------
+
+
+def init_projection_basis(mesh: SemMesh, k: int):
+    """Empty rolling E-solution-recycling basis (X, AX, count): k slots of
+    A-orthonormal previous solutions X and AX ~= A X, stored, never
+    recomputed (A x_i is the solve's own right-hand side at convergence:
+    Nek5000's projection, param(93-95)). Zero slots contribute nothing.
+    count is a 0-d int64 tensor on the mesh's device, so choosing a slot
+    reads nothing back to the host. A slot holds its solution in the
+    pressure CG's layout (element-first when the solver applies E's exact
+    blocks): a basis serves the solver that fills it."""
+    shape = (k,) + tuple(mesh.bm2.shape)
+    z = torch.zeros(shape, dtype=mesh.dtype, device=mesh.device)
+    return z, torch.zeros_like(z), torch.zeros((), dtype=torch.int64, device=mesh.device)
+
+
+def _basis_project(basis, rhs, part=None):
+    """(xbar, rhs - A xbar), xbar the A-orthogonal projection of the
+    solution onto span(X): alpha = X rhs (= X A x_true), one product of the
+    k slots, summed across the ranks of a partitioned run in one
+    all-reduce. The basis carries no gradient and no tangent, so the map
+    rhs -> (xbar, rhs') is linear, and with the exact solve after it the
+    whole map is A^-1 rhs for any basis value: its backward and its
+    forward mode are those of a fixed linear map."""
+    X, AX, _ = basis
+    k = X.shape[0]
+    Xf, AXf = X.reshape(k, -1), AX.reshape(k, -1)
+    alpha = global_sum(part, Xf @ rhs.reshape(-1))
+    rest = torch.addmv(rhs.reshape(-1), AXf.T, alpha, alpha=-1.0)
+    return (alpha @ Xf).view(rhs.shape), rest.view(rhs.shape)
+
+
+def _basis_update(basis, delta, adelta, rtol, part=None):
+    """The basis with the new solution increment appended: A-Gram-Schmidt
+    against the slots, written to slot count % k. adelta, the solve's
+    right-hand side, equals A delta only to the solver's absolute residual
+    tolerance rtol, so a small increment's A-norm is noise, and normalizing
+    it poisons the basis: the update is skipped (the slots and count kept)
+    unless ||d||_A^2 > 100 ||d|| rtol, the reference's guard. The increment
+    is detached (no gradient, no tangent), and every tensor is new: a
+    basis that a recorded step saved is never written in place. ok, the
+    slot and count stay on the device (a masked write, no branch); its ops
+    run eagerly around the captured CG. In a partitioned run beta and
+    (||d||_A^2, ||d||^2) are all-reduced, so every rank takes the same ok
+    and slot."""
+    X, AX, count = basis
+    k = X.shape[0]
+    Xf, AXf = X.reshape(k, -1), AX.reshape(k, -1)
+    delta, adelta = delta.detach().reshape(-1), adelta.detach().reshape(-1)
+    beta = Xf @ adelta
+    if part is not None:
+        beta = part.all_reduce(beta)
+    d = torch.addmv(delta, Xf.T, beta, alpha=-1.0)
+    ad = torch.addmv(adelta, AXf.T, beta, alpha=-1.0)
+    sums = torch.stack((ad, d)) @ d  # (||d||_A^2, ||d||^2)
+    if part is not None:
+        sums = part.all_reduce(sums)
+    nrm2, d2 = sums.unbind()
+    ok = nrm2 > torch.sqrt(d2) * (100.0 * rtol)
+    inv = torch.where(ok, torch.rsqrt(nrm2), 0.0)  # nrm2 > 0 wherever it is taken
+    write = ok & (torch.arange(k, device=count.device) == count % k)[:, None]
+    return (torch.where(write, d * inv, Xf).view(X.shape),
+            torch.where(write, ad * inv, AXf).view(AX.shape), count + ok.to(count.dtype))
+
+
 def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
-    """Returns dp = solve(rhs, x0=None) for the E operator at fixed dt/g0.
+    """Returns dp = solve(rhs, x0=None, basis=None) for the E operator at
+    fixed dt/g0.
 
     For enclosed flows (pure-Neumann pressure) the constant nullspace is
     projected out of the operator, the preconditioner and the RHS, and out
@@ -256,7 +328,7 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
     cg = PCG(op, to_ef(torch.zeros_like(mesh.bm2)), precond, project=proj if pure else None,
              part=mesh.part)
 
-    def solve(rhs, x0=None, stats=None, dt_over_g0_now=None):
+    def solve(rhs, x0=None, stats=None, dt_over_g0_now=None, basis=None):
         """x0: optional warm start (e.g. the previous step's increment),
         entered as the shift dp = x0 + delta, E delta = rhs - E x0, so it
         reaches the solve through the right-hand side and the map stays
@@ -266,8 +338,19 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
         carries a forward-mode tangent, so do E and the solve. E is linear
         in it, E(c) = (c / c0) E(c0), so the tangent of E x is
         E x' + (c'/c0) E x and that of E^-1 r is E^-1 r' - (c'/c0) E^-1 r:
-        the solver's CG serves both."""
+        the solver's CG serves both.
+
+        basis: an optional recycling basis (`init_projection_basis`), which
+        returns (dp, basis'): the right-hand side is deflated by the
+        A-orthogonal projection onto the span of previous solutions
+        (Nek5000's residual projection), projected onto range(E) again,
+        solved, and the increment enters the basis. The update is
+        nonlinear in the data: the adjoint records a solve without one.
+        A basis pairs with one E, so it takes no dt tangent."""
         s = tangent_part(dt_over_g0_now)
+        if basis is not None and s is not None:
+            raise ValueError("pressure solve: a recycling basis with a dt tangent (the basis "
+                             "holds A x at the primal dt)")
         shape = rhs.shape
         rhs = to_ef(rhs)
         if x0 is not None:
@@ -276,17 +359,24 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
             if s is not None:
                 ex = ex * (1.0 + s / dt_over_g0)
             rhs = rhs - ex
-        dp = linear_solve(cg, proj(rhs), cfg.ptol, cfg.pmaxit, project=proj if pure else None,
+        rhs = proj(rhs)
+        if basis is not None:
+            xbar, rhs = _basis_project(basis, rhs, mesh.part)
+            rhs = proj(rhs)
+        dp = linear_solve(cg, rhs, cfg.ptol, cfg.pmaxit, project=proj if pure else None,
                           log=_logger(stats, "pressure"))
         if s is not None:
             dp = dp * (1.0 - s / dt_over_g0)
+        if basis is not None:
+            basis = _basis_update(basis, dp, rhs, cfg.ptol, mesh.part)
+            dp = dp + xbar
         if x0 is not None:
             dp = dp + x0
         if blocks:
             dp = dp.T.reshape(shape).contiguous()
         if pure:
             dp = stokes.remove_pressure_mean(mesh, dp)
-        return dp
+        return dp if basis is None else (dp, basis)
 
     solve.cg = cg
     return solve
@@ -383,6 +473,7 @@ def step(
     extra_force=None,
     stats=None,
     dt=None,
+    pbasis=None,
 ) -> FlowState:
     """One BDF(order)/EXT(order) step of the nonlinear solver at cfg.dt.
 
@@ -393,7 +484,9 @@ def step(
     pressure CG iteration counts are appended to stats["helmholtz"] and
     stats["pressure"]. dt: cfg.dt again as a 0-d tensor that carries a
     forward-mode tangent (the period of a periodic orbit, d/dT): every use
-    of dt then carries it, the solves' operators included."""
+    of dt then carries it, the solves' operators included. pbasis: an
+    optional recycling basis of the pressure solve (`init_projection_basis`),
+    threaded through and returned: -> (state', pbasis')."""
     dt = cfg.dt if dt is None else dt
     g0, betas = _BDF[order]
     alphas = _EXT[order]
@@ -424,7 +517,10 @@ def step(
     # better guess.
     dt_over_g0 = dt / (g0 * cfg.rho)
     x0 = None if cfg.pextrap >= 2 else state.p - state.plag[0]
-    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats, dt_over_g0_now=dt_over_g0)
+    dp = psolve(-stokes.div_weak(mesh, ustar), x0=x0, stats=stats, dt_over_g0_now=dt_over_g0,
+                basis=pbasis)
+    if pbasis is not None:
+        dp, pbasis = dp
     u_new = ustar + stokes.pressure_correct_velocity(mesh, dp, dt_over_g0)
     p_new = pstar + dp
 
@@ -442,7 +538,7 @@ def step(
         theta_new = state.theta
 
     shift = lambda lag, cur: torch.cat([cur[None], lag[:-1]], dim=0)
-    return FlowState(
+    out = FlowState(
         u=u_new,
         p=p_new,
         theta=theta_new,
@@ -453,6 +549,7 @@ def step(
         plag=state.p[None],
         time=state.time + dt,
     )
+    return out if pbasis is None else (out, pbasis)
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +559,8 @@ def step(
 
 def advance(mesh: SemMesh, cfg: FlowConfig, state: FlowState, nsteps: int, ub=None, tb=None,
             ramp: bool = True, pc_e=None, vdiag=None, tdiags=None, dt=None, psolves=None,
-            vsolves=None, stats=None, trajectory: list | None = None) -> FlowState:
+            vsolves=None, stats=None, trajectory: list | None = None,
+            recycle: int = 0) -> FlowState:
     """Integrate nsteps with a BDF1/2/3 startup ramp (self-starting: the map
     needs no externally supplied history); ramp=False continues at the
     scheme's order from the state's history.
@@ -477,7 +575,18 @@ def advance(mesh: SemMesh, cfg: FlowConfig, state: FlowState, nsteps: int, ub=No
     one dt builds them once; they are built here when None. stats: as in
     `step`, one entry per step and solve. trajectory: optional list; the
     state before every step and the step's BDF order are appended, as
-    (state, order) pairs (the orbit a linearization about it needs)."""
+    (state, order) pairs (the orbit a linearization about it needs).
+
+    recycle: if > 0, each pressure solve after the ramp is deflated against
+    the last `recycle` solutions (Nek5000's residual projection,
+    param(93-95)); the ramp's solves are not, since E scales with dt/g0,
+    which changes with the BDF order. The output equals recycle=0's to
+    the solvers' tolerance. Forward mode and the backward go through it
+    (the basis carries neither); a dt that carries a tangent raises, since
+    the stored A x do not."""
+    if recycle and is_dual(dt):
+        raise ValueError("advance: recycle > 0 with a dt that carries a tangent (the "
+                         "recycling basis holds A x at the primal dt)")
     if dt is not None:
         cfg = dataclasses.replace(cfg, dt=float(dt))
     orders = bdf_orders(cfg, nsteps, ramp)
@@ -488,13 +597,18 @@ def advance(mesh: SemMesh, cfg: FlowConfig, state: FlowState, nsteps: int, ub=No
         vsolves = velocity_solvers(mesh, cfg, orders, vdiag, tdiags)
     tmax = min(cfg.torder, 3)
     n_ramp = min(cfg.torder - 1, nsteps) if ramp else 0
+    pbasis = None
     for k in range(nsteps):
         order = k + 1 if k < n_ramp else tmax
         vsolve, tsolves = vsolves[order]
         if trajectory is not None:
             trajectory.append((state, order))
+        if recycle and k == n_ramp:
+            pbasis = init_projection_basis(mesh, recycle)
         state = step(mesh, cfg, state, order, psolves[order], vsolve, tsolves, ub=ub, tb=tb,
-                     stats=stats, dt=dt if is_dual(dt) else None)
+                     stats=stats, dt=dt if is_dual(dt) else None, pbasis=pbasis)
+        if pbasis is not None:
+            state, pbasis = state
     return state
 
 

@@ -6,7 +6,7 @@ through the linearized propagator about the frozen iterate X (the
 reference's semantics), or with exact_jacobian=True the true Jacobian of
 the discrete map, by forward mode through the nonlinear integration; each
 has its exact discrete adjoint as rmatvec. Counterpart of
-`neklab_tpu.systems.fixed_point` (without its solve recycling).
+`neklab_tpu.systems.fixed_point`.
 
 The reference jits `advance` and `propagate` and jit's cache keeps one
 program per (dt, nsteps). Here the pieces that cost a build are kept
@@ -61,14 +61,23 @@ class FixedPointSystem(NonlinearSystem):
         dt: float | None = None,
         exact_jacobian: bool = False,
         precondition: bool = True,
+        recycle: int = 0,
     ):
         """ub, tb: the velocity and scalar Dirichlet values of the nonlinear
         integration. The step is tau / ceil(tau / dt), with dt from the CFL
         target against each iterate unless given. precondition: the E
         solves use the two-level preconditioner, built once here: E(dt) =
         (dt/g0) E(1) and CG is invariant to a scaling of the
-        preconditioner, so one serves every dt."""
+        preconditioner, so one serves every dt.
+
+        recycle: each post-ramp E solve is deflated against the last
+        `recycle` solutions (Nek5000's residual projection) in the nonlinear
+        map, the frozen Jacobian's matvec and the exact Jacobian's forward
+        mode and backward through `advance` (the basis carries no gradient
+        and no tangent); the frozen Jacobian's rmatvec, the adjoint of a
+        recorded `propagate`, stays recycle-free."""
         self.mesh = mesh
+        self.recycle = int(recycle)
         self.base_cfg = cfg
         self.tau = float(tau)
         self.ub = ub
@@ -102,7 +111,7 @@ class FixedPointSystem(NonlinearSystem):
         fc = d.cfg.flow
         st = ns.initial_state(self.mesh, fc, u=u, theta=theta)
         out = ns.advance(self.mesh, fc, st, d.nsteps, ub=self.ub, tb=self.tb, pc_e=self.pc_e,
-                         psolves=d.psolves, vsolves=d.vsolves, stats=stats)
+                         psolves=d.psolves, vsolves=d.vsolves, stats=stats, recycle=self.recycle)
         return out.u, out.theta
 
     def advance_map(self, x: dict, stats: dict | None = None) -> dict:
@@ -117,16 +126,17 @@ class FixedPointSystem(NonlinearSystem):
         d = self._derive(x["u"])
         if self.exact_jacobian:
             return _ExactJacobian(self, x, d)
-        return _FrozenJacobian(self.mesh, d, x, pc_e=self.pc_e)
+        return _FrozenJacobian(self.mesh, d, x, pc_e=self.pc_e, recycle=self.recycle)
 
 
 class _FrozenJacobian(LinearOperator):
     """[exp(tau J_X) - I] dx about the frozen base flow X (the reference's
-    semantics): `propagate` with the system's solvers at X's (dt, nsteps).
-    rmatvec: the exact discrete adjoint, recorded at its first call."""
+    semantics): `propagate` with the system's solvers at X's (dt, nsteps),
+    recycling as the system does. rmatvec: the exact discrete adjoint of
+    the recycle-free map, recorded at its first call."""
 
-    def __init__(self, mesh: SemMesh, d: Derived, x: dict, pc_e=None):
-        self.mesh, self.d, self.x, self.pc_e = mesh, d, x, pc_e
+    def __init__(self, mesh: SemMesh, d: Derived, x: dict, pc_e=None, recycle: int = 0):
+        self.mesh, self.d, self.x, self.pc_e, self.recycle = mesh, d, x, pc_e, recycle
         self._adj: AdjointPropagator | None = None
 
     def matvec(self, dx, stats: dict | None = None):
@@ -134,7 +144,8 @@ class _FrozenJacobian(LinearOperator):
         d = self.d
         u, theta = propagate(self.mesh, d.cfg, self.x["u"], self.x["theta"], dx["u"], dx["theta"],
                              d.nsteps, pc_e=self.pc_e, vdiag=d.vdiag, tdiags=d.tdiags,
-                             psolves=d.psolves, vsolves=d.vsolves, stats=stats)
+                             psolves=d.psolves, vsolves=d.vsolves, stats=stats,
+                             recycle=self.recycle)
         return {"u": u - dx["u"], "theta": theta - dx["theta"]}
 
     def rmatvec(self, dx):

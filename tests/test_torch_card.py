@@ -7,7 +7,10 @@ recorded propagator's) and the forward mode of the kernel and the solves
 with an inflow lift, one forced linearized step, and element-partitioned
 runs on the card: two gloo ranks sharing it (their results, and their peak
 memory against one process's), and a one-rank NCCL group whose CGs capture
-their all-reduces, also under forward mode.
+their all-reduces, also under forward mode; and Nek5000's residual
+projection (`recycle=`) around the graphed pressure CG: a recycled
+propagator, the recycled exact Jacobian of a fixed-point system, and
+recycled steps of a one-rank NCCL group.
 
 Every test here is marked `cuda` and skips where `torch.cuda.is_available()`
 is False. The file imports no jax, so it also runs on a machine that has
@@ -762,3 +765,113 @@ def test_one_rank_nccl_group_forward_mode_matches_cpu(card, tmp_path):
     assert float(want.abs().max()) > 1e-3
     assert rel(torch.as_tensor(out["jvp"]), want) <= 1e-10
 
+
+
+# ---------------------------------------------------------------------------
+# recycling (Nek5000's residual projection) around the graphed pressure CG
+# ---------------------------------------------------------------------------
+
+
+def test_recycled_propagate_matches_cpu(card):
+    """`ExponentialPropagator(recycle=8)` on the card (graphed CGs, the
+    basis on the device in the element-first layout of E's exact blocks)
+    against the CPU, f64, 20 steps of the Poiseuille Re=500 channel: rel
+    1e-10, and within the solvers' tolerance of recycle=0 on the card."""
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.models.linearized import LinConfig
+
+    out, props = {}, {}
+    u = None
+    for dev in (card, "cpu"):
+        m = box_mesh((4, 5), ((0, 2 * np.pi), (-1, 1)), CHANNEL_BC, order=6, device=dev)
+        cfg = LinConfig(flow=ns.FlowConfig(viscosity=1 / 500, dt=1e-2, vtol=1e-12, ptol=1e-12))
+        y = m.x[1]
+        props[dev] = ExponentialPropagator(m, cfg, torch.stack([1 - y**2, 0 * y]), tau=0.2,
+                                           dt=1e-2, recycle=8)
+        if u is None:
+            u = np.random.default_rng(13).standard_normal((2,) + tuple(m.bm1.shape))
+        x = {"u": m.vmask * sem.dsavg(m, torch.as_tensor(u, device=dev)),
+             "theta": torch.zeros((0,) + tuple(m.bm1.shape), dtype=m.dtype, device=dev)}
+        out[dev] = props[dev].matvec(x)["u"]
+        if dev == card:
+            assert props[dev].pc_e.eb_w is not None
+            assert all(s.cg.graphed for s in props[dev].psolves.values())
+            props[dev].recycle = 0
+            plain = props[dev].matvec(x)["u"]
+    assert rel(out[card].cpu(), out["cpu"]) <= 1e-10
+    assert rel(plain, out[card]) <= 1e-8
+
+
+def test_recycled_exact_jacobian_matches_cpu(card):
+    """`FixedPointSystem(recycle=4, exact_jacobian=True)` on the forced
+    channel (4 x 2 elements at order 4, tau 0.2 at dt 0.025: 6 steps past
+    the ramp, 1e-12 solves): the matvec (forward mode through the recycled
+    `advance`) and the rmatvec (its recorded backward), card against CPU,
+    rel 1e-10."""
+    import torch_shard_workers as W
+    from neklab_tpu_torch.models.linearized import LinConfig
+    from neklab_tpu_torch.systems.fixed_point import FixedPointSystem
+    from neklab_tpu_torch.vectors import flow_vector
+
+    mesh = box_mesh(**W.FORCED_BOX, dtype=torch.float64, device="cpu")
+    y = mesh.x[1]
+    gen = torch.Generator()
+    gen.manual_seed(10)
+    noise = lambda: torch.randn((2,) + tuple(mesh.bm1.shape), generator=gen, dtype=mesh.dtype)
+    guess = mesh.vmask * sem.dsavg(mesh, torch.stack([0.7 * (1 - y**2), 0 * y]) + 0.05 * noise())
+    du, w = (mesh.vmask * sem.dsavg(mesh, noise()) for _ in range(2))
+    cfg = LinConfig(flow=ns.FlowConfig(viscosity=W.FORCED_NU, dt=0.025, vtol=1e-12, ptol=1e-12,
+                                       forcing_fn=W.body_force))
+    out = {}
+    for dev in (card, "cpu"):
+        m = mesh.to(dev)
+        system = FixedPointSystem(m, cfg, tau=0.2, dt=0.025, exact_jacobian=True, recycle=4)
+        vec = lambda a: flow_vector(m, 0, u=a.to(dev))
+        jac = system.jacobian(vec(guess))
+        out[dev] = (jac.matvec(vec(du))["u"], jac.rmatvec(vec(w))["u"])
+    for got, want in zip(out[card], out["cpu"]):
+        assert float(want.abs().max()) > 1e-3
+        assert rel(got.cpu(), want) <= 1e-10
+
+
+def test_one_rank_nccl_group_recycled_steps_match_unsplit(card, tmp_path):
+    """8 nonlinear steps with recycle=4 on a one-rank NCCL group (graphed
+    CGs, the basis's sums all-reduced eagerly around them) against the
+    same steps unsplit, at the bounds of the plain case above."""
+    import torch_shard_workers as W
+
+    mesh = box_mesh(**W.STEP_BOX, dtype=torch.float64, device="cpu")
+    y = mesh.x[1]
+    u0 = (mesh.vmask * torch.stack([1 - y**2, 0.1 * torch.sin(mesh.x[0])])).numpy()
+    cfg = dict(viscosity=1e-3, dt=2e-3, vtol=1e-10, ptol=1e-10, vmaxit=40, pmaxit=80)
+    out = W.run_ranks("nccl", 1, str(tmp_path), dict(cfg=cfg, backend="nccl", device="cuda:0",
+                                                      nsteps=8, recycle=4),
+                      dict(u0=u0), timeout=300)
+    assert out["split_graphed"].all() and out["one_graphed"].all()
+    assert int(out["split_calls"]) > 0 and int(out["one_calls"]) == 0
+    assert np.abs(out["split_u"] - out["one_u"]).max() <= 1e-10
+    assert np.abs(out["split_p"] - out["one_p"]).max() <= 1e-8
+
+
+def test_recycling_basis_makes_no_host_read(card):
+    """The projection and the update of a recycling basis on the card run
+    under `torch.cuda.set_sync_debug_mode("error")`: ok, the slot and the
+    count stay on the device, so no step of them reads back to the host."""
+    mesh = box_mesh(*CHANNEL, order=6, device=card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(14)
+    rand = lambda: torch.randn(tuple(mesh.bm2.shape), generator=gen, dtype=mesh.dtype,
+                               device=card)
+    basis = ns.init_projection_basis(mesh, 3)
+    vals = [rand() for _ in range(5)]
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for v in vals[:4]:  # the fourth rolls over onto slot 0
+            xbar, rest = ns._basis_project(basis, v)
+            basis = ns._basis_update(basis, v, 2.0 * v, 1e-12)
+        xbar, rest = ns._basis_project(basis, vals[4])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(basis[2]) == 4
+    assert bool(torch.isfinite(xbar).all()) and bool(torch.isfinite(rest).all())

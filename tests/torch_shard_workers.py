@@ -262,7 +262,9 @@ def job_eigs(part, args, z, dev):
 
 def job_nccl(part, args, z, dev):
     """One NCCL rank on a card: the velocity and pressure solves of the
-    channel box with graphed CGs, against the same solves unsplit."""
+    channel box with graphed CGs, against the same solves unsplit:
+    args["nsteps"] nonlinear steps (3 when not given), recycling as
+    args["recycle"] says (0 when not given)."""
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.parallel import shard_sem_mesh
@@ -273,13 +275,14 @@ def job_nccl(part, args, z, dev):
     cfg = _flow_cfg(args["cfg"])
     u0 = torch.as_tensor(z["u0"], device=dev)
     out = {}
+    nsteps, recycle = args.get("nsteps", 3), args.get("recycle", 0)
     for name, m in (("split", mesh), ("one", one)):
-        orders = ns.bdf_orders(cfg, 3)
+        orders = ns.bdf_orders(cfg, nsteps)
         psolves = ns.pressure_solvers(m, cfg, orders)
         vsolves = ns.velocity_solvers(m, cfg, orders, *ns.bdf3_diags(m, cfg))
         part.log.reset()
-        st = ns.advance(m, cfg, ns.initial_state(m, cfg, u=u0), 3, psolves=psolves,
-                        vsolves=vsolves)
+        st = ns.advance(m, cfg, ns.initial_state(m, cfg, u=u0), nsteps, psolves=psolves,
+                        vsolves=vsolves, recycle=recycle)
         out[name + "_u"], out[name + "_p"] = st.u, st.p
         out[name + "_graphed"] = np.asarray([psolves[1].cg.graphed, vsolves[1][0].cg.graphed])
         out[name + "_calls"] = np.asarray(part.log.calls)
@@ -310,7 +313,8 @@ def job_drivers(part, args, z, dev):
     """Forward mode through `Partition.sum`; on the forced channel the
     fixed-point system's response and its frozen and exact Jacobians'
     matvec and rmatvec, and Newton with each (`newton_fixed_point_iteration`,
-    rank 0 writing residual.dat and timers.log)."""
+    rank 0 writing residual.dat and timers.log); recycled `propagate` and
+    `advance` (`_recycled`)."""
     from neklab_tpu_torch.analysis import newton_fixed_point_iteration
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.models.linearized import LinConfig
@@ -343,6 +347,50 @@ def job_drivers(part, args, z, dev):
         out[f"{name}_iterations"] = np.asarray(res.iterations)
         out[f"{name}_x"] = gather_field(res.x["u"], part)
 
+    out.update(_recycled(part, mesh, cfg, x, dx, shard_field(z["base"], part), sys_.pc_e,
+                         args["recycle"]))
+    return out
+
+
+def _recycled(part, mesh, cfg, x, dx, base, pc, kw) -> dict:
+    """`propagate` from dx about base with recycle=0 and recycle=kw["k"],
+    and `advance` from x with recycle=kw["k"], over kw["nsteps"] steps at
+    solves of kw["tol"] with the preconditioner pc (E's exact blocks: the
+    element-first layout), gathered; and the all-reduces that recycling
+    adds per recycled solve: the difference of the two propagations' logs
+    less the difference of their CG iterations times each CG's all-reduces
+    per iteration."""
+    import dataclasses
+
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, propagate
+    from neklab_tpu_torch.parallel import gather_field
+
+    fc = dataclasses.replace(cfg.flow, vtol=kw["tol"], ptol=kw["tol"])
+    n, k = kw["nsteps"], kw["k"]
+    orders = ns.bdf_orders(fc, n)
+    psolves = ns.pressure_solvers(mesh, fc, orders, pc)
+    vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
+    tmax = orders[-1]
+    per_iter = {"pressure": _per_iteration(part, psolves[tmax].cg, psolves[tmax].cg.r.normal_()),
+                "helmholtz": _per_iteration(part, vsolves[tmax][0].cg,
+                                            vsolves[tmax][0].cg.r.normal_())}
+    th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=mesh.device)
+    out, calls, iters = {}, {}, {}
+    for r in (0, k):
+        stats = {}
+        part.log.reset()
+        mu = propagate(mesh, LinConfig(flow=fc), base, th, dx["u"], th, n, pc_e=pc,
+                       psolves=psolves, vsolves=vsolves, stats=stats, recycle=r)[0]
+        out[f"recycle{r}_propagate"] = gather_field(mu, part)
+        calls[r] = part.log.calls
+        iters[r] = {key: sum(v) for key, v in stats.items()}
+    cg_diff = sum(per_iter[key] * (iters[k][key] - iters[0][key]) for key in per_iter)
+    out["recycle_extra"] = np.asarray((calls[k] - calls[0] - cg_diff) / (n - (len(orders) - 1)))
+    out["recycle_iters"] = np.asarray([iters[0]["pressure"], iters[k]["pressure"]])
+    st = ns.advance(mesh, fc, ns.initial_state(mesh, fc, u=x["u"]), n, pc_e=pc, psolves=psolves,
+                    vsolves=vsolves, recycle=k)
+    out[f"recycle{k}_advance"] = gather_field(st.u, part)
     return out
 
 

@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint,
                                                  cyl50-nonlinear,otd500-otd,box3d]
-                                        [--nsteps 20]
+                                        [--nsteps 20] [--recycle 0,8]
 
 Cases: `re7500` is the Poiseuille Re=7500 `medium` propagator of
 chip_smoke.py phases 6 and 7 (the main paths; dt as ExponentialPropagator
@@ -39,7 +39,13 @@ sustained protocol; the nonlinear and OTD cases from their own states):
     CG's shape (CUDA events, calls queued behind a sleep) and the share of
     the step's device-busy time that one apply per velocity CG iteration
     and one per solve's right-hand side take.
-One JSON line per case. Needs a CUDA card; imports no jax.
+`--recycle K1,K2,...` profiles each direct and nonlinear case once per K
+with `recycle=K` (Nek5000's residual projection of the pressure solves;
+0, the default, is the plain path), one line each, in that order: the
+propagator recycles after each call's BDF ramp, the nonlinear case over
+each whole call (it continues at the scheme's order). The adjoint and OTD
+cases have no recycling and run once. One JSON line per case and K.
+Needs a CUDA card; imports no jax.
 """
 
 import argparse
@@ -102,7 +108,7 @@ def build_case(name, dev):
             ns.velocity_solvers(mesh, fc, orders, vdiag, None))
 
 
-def nonlinear_case(dev, nsteps):
+def nonlinear_case(dev, nsteps, recycle=0):
     """-> (mesh, dt, run, state) for the cylinder's nonlinear step: run(state,
     stats) advances nsteps at the scheme's order with solvers built once."""
     from neklab_tpu_torch.mesh.cylinder import annulus_mesh
@@ -125,7 +131,7 @@ def nonlinear_case(dev, nsteps):
 
     def run(st, stats=None):
         return ns.advance(mesh, fc, st, nsteps, ub=ub, ramp=False, psolves=psolves,
-                          vsolves=vsolves, stats=stats)
+                          vsolves=vsolves, stats=stats, recycle=recycle)
 
     return mesh, fc.dt, run, state
 
@@ -171,7 +177,7 @@ def otd_case(dev, nsteps):
     return mesh, fc.dt, run, run(state, ramp=True)
 
 
-def profile_case(name, dev, nsteps):
+def profile_case(name, dev, nsteps, recycle=0):
     from torch.profiler import ProfilerActivity, profile
 
     from neklab_tpu_torch.models.linearized import make_adjoint_propagator, propagate
@@ -181,7 +187,7 @@ def profile_case(name, dev, nsteps):
     base, _, kind = name.partition("-")
     tape_bytes = None
     if kind == "nonlinear":
-        mesh, dt, run, u = nonlinear_case(dev, nsteps)
+        mesh, dt, run, u = nonlinear_case(dev, nsteps, recycle)
     elif kind == "otd":
         mesh, dt, run, u = otd_case(dev, nsteps)
     else:
@@ -195,7 +201,7 @@ def profile_case(name, dev, nsteps):
         else:
             apply = lambda u, stats: propagate(mesh, cfg, base_u, th, u, th, nsteps, pc_e=pc,
                                                vdiag=vdiag, psolves=psolves, vsolves=vsolves,
-                                               stats=stats)[0]
+                                               stats=stats, recycle=recycle)[0]
 
         def run(u, stats=None):
             u = apply(u, stats)
@@ -237,7 +243,7 @@ def profile_case(name, dev, nsteps):
         apply = {"helmholtz3d_apply_device_ms": ms, "helmholtz3d_applies_per_step": per_step,
                  "helmholtz3d_share_of_device_busy": per_step * ms / (dev_us / 1e3 / nsteps)}
     return {
-        "case": name, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": dt,
+        "case": name, "recycle": recycle, "nel": mesh.nel, "order": mesh.basis.n - 1, "dt": dt,
         "nsteps": nsteps, "tape_bytes": tape_bytes,
         "ms_per_step": walls,
         "cg_iters_per_step": {k: sum(v) / (3 * nsteps) for k, v in stats.items()},
@@ -279,14 +285,18 @@ def main():
     ap.add_argument("--cases", default="re7500,box2d,re7500-adjoint,box2d-adjoint,"
                                        "cyl50-nonlinear,otd500-otd")
     ap.add_argument("--nsteps", type=int, default=20)
+    ap.add_argument("--recycle", default="0")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA card")
     import neklab_tpu_torch  # noqa: F401  (sets the TF32 switches)
 
     dev = torch.device("cuda", 0)
+    recycles = [int(k) for k in args.recycle.split(",")]
     for name in args.cases.split(","):
-        print(json.dumps(profile_case(name, dev, args.nsteps)), flush=True)
+        plain_only = name.endswith(("-adjoint", "-otd"))
+        for k in [0] if plain_only else recycles:
+            print(json.dumps(profile_case(name, dev, args.nsteps, k)), flush=True)
 
 
 if __name__ == "__main__":
