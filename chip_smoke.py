@@ -22,7 +22,14 @@ transient_growth_analysis_fixed_point), the pressure preconditioner's
 aggregated tier with the matrix-free E at 21,609 elements, and the 3-D
 path: the box3d duct at 1,119,744 velocity DOF and a 3-D channel
 eigensolve (box_mesh -> ExponentialPropagator -> flow_vector_space ->
-linear_stability_analysis_fixed_point, with its mode files and timers).
+linear_stability_analysis_fixed_point, with its mode files and timers),
+and the Boussinesq family (nscal = 1): Rayleigh-Benard onset (box_mesh
+with bc_temp -> ExponentialPropagator with lin_forcing_fn ->
+flow_vector_space(mesh, 1) -> linear_stability_analysis_fixed_point) and
+the heated-annulus thermosyphon (annulus_mesh with bc_temp -> advance
+with forcing_fn and tb -> FixedPointSystem(tb=) ->
+newton_fixed_point_iteration -> ExponentialPropagator about (u, theta) ->
+linear_stability_analysis_fixed_point, and its adjoint).
 Phases:
 
   0 device   the card, its power limit, TF32 off
@@ -104,6 +111,14 @@ Phases:
              Jacobian, a resolvent frequency, the projected propagator, a
              bordered periodic-orbit Jacobian and OTD, small and f64, each
              against one process on the card
+  17 rayleigh  Rayleigh-Benard onset (tests/test_rayleigh_benard.py), f64,
+             nscal = 1: sigma at Ra = 1690, 1725, 1900 about the conduction
+             state; the secant Ra_c within 3.0 of Chandrasekhar's 1707.762,
+             sigma(1900) > 0; the scalar solves' kernel runs
+  18 thermosyphon  examples/thermosyphon_baseflow.py `medium`, f64: 1200
+             spin-up steps, Newton to |F| < 1e-8, the eigensolve (kdim 40,
+             nev 2), sigma_1 and sigma_2 vs the reference's recorded values,
+             the discrete-adjoint identity
 
 After phases 0-2 and 5, which time the card alone, the main process starts
 one process per group of SIDE (this script with `--side oracle,resolvent`,
@@ -112,11 +127,13 @@ most solves are bound by the host's launch rate, one core each, and leave
 the card idle most of the time. Phase 7 runs in a side group on phase 6's
 mu_1, which the main process writes to .scratch/mu1.json. `--only a,b,...`
 runs the named phases one after another in this process (to time them
-alone; `growth` after `re7500`);
-`--eigs-depth channel3d|re7500 kdim:tol:maxiter ...` times phase 15's or
-phase 6's eigensolve at other Krylov dimensions (`eigs_depth`). The
-script uses one card: it makes only the first visible card visible to
-itself. Every phase asserts; any failure raises and the exit code is
+alone; `growth` after `re7500`); `--eigs-depth channel3d|re7500
+kdim:tol:maxiter ...` times phase 15's or phase 6's eigensolve at other
+Krylov dimensions (`eigs_depth`). Phase 15 starts once the side groups
+have ended (or at MAIN_LAST_BY seconds). The line `timeline {...}` gives
+the second, counted from the start, at which each phase ended, in
+whichever process it ran. The script uses one card: it makes only the
+first visible card visible to itself. Every phase asserts; any failure raises and the exit code is
 non-zero. The last line on success is {"ok": true, "device": {...}}; the line
 before it lists the kernels. Without a CUDA card it fails at once.
 
@@ -129,6 +146,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -185,7 +203,10 @@ def device_ms(fn, calls: int = 100) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(500_000_000)  # ~0.25 s of GPU clock cycles
+    # ~50 ms of GPU clock cycles: 100 calls of the plain chain (~20 launches
+    # each) enqueue in ~10 ms, and phase 2, which times ~130 such windows
+    # alone, adds every sleep to the script's end
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(calls):
         fn()
@@ -305,10 +326,12 @@ def kernel_phase(dev):
     CG iteration, one of n*n the Jacobi-diagonal probe, helmholtz_diag),
     each on its phase's mesh and coefficients, and at the edges of its
     tiling: nel not a multiple of the tile (15, 121), n = 2 and n = 12, a
-    batch of 1 and of 81, and on each of phase 16's four ranks' blocks of
-    box2d. Times it against the plain chain at the CG shapes of the direct
-    path (phase 6), of the cylinder (phase 8), of box2d and of a rank's
-    block of it, and alone at their probe shapes."""
+    batch of 1 and of 81, on each of phase 16's four ranks' blocks of
+    box2d, and at the Boussinesq phases' (17, 18) scalar shapes (one field,
+    no leading axis) and velocity shapes, in f32 and f64. Times it against
+    the plain chain at the CG shapes of the direct path (phase 6), of the
+    cylinder (phase 8), of box2d and of a rank's block of it and at the
+    thermosyphon's scalar CG, and alone at their probe shapes."""
     from neklab_tpu_torch.mesh.box import box_mesh
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
     from neklab_tpu_torch.parallel import Partition, shard_sem_mesh
@@ -355,6 +378,19 @@ def kernel_phase(dev):
     for name, m in file_meshes(dev).items():
         cases += [(f"parity_u_{name}/{lead}", mesh_args(m, lead, (1 / 50, 1e-2)))
                   for lead in ((2,), (36,))]
+    # the Boussinesq phases' meshes, f32 and f64: Rayleigh-Benard's 3 x 3 box
+    # (nel 9, fewer elements than a tile) and the thermosyphon's 4 x 20
+    # annulus (nel 80); the scalar CG's single field at (conductivity, dt),
+    # the velocity CG's pair at (nu, dt), and the two Jacobi probes
+    boussinesq = {}
+    for dtype in (torch.float32, torch.float64):
+        for key, m, nu, dt in (("rayleigh", rb_box(dev, dtype), RB_FLOW["viscosity"], 1e-3),
+                               ("thermosyphon", thermosyphon_mesh(dev, dtype), TS_PR, TS_DT)):
+            boussinesq[key, dtype] = m
+            probe = (m.basis.n ** 2,)
+            for what, lead, h1 in (("scalar", (), 1.0), ("scalar_probe", probe, 1.0),
+                                   ("velocity", (2,), nu), ("velocity_probe", probe, nu)):
+                cases.append((f"{key}/{SHORT[dtype]}/{what}", mesh_args(m, lead, (h1, dt))))
     box2d64 = channel(dev, torch.float64, (64, 16), 7)
     for m in (box2d, box2d64):
         cases += [(f"box2d_131k/{str(m.dtype)[6:]}/{lead}", mesh_args(m, lead))
@@ -391,12 +427,15 @@ def kernel_phase(dev):
         args = mesh_args(m, lead)
         probes[f"{list(args[0].shape)} f32"] = device_ms(lambda: hk.helmholtz2d(*args))
     # the velocity-CG shapes of the direct path, the cylinder, box2d, the
-    # resolvent sweep (f32) and the periodic orbit (f64)
+    # resolvent sweep (f32) and the periodic orbit (f64), and the
+    # thermosyphon's scalar CG (f64, one field)
     timed = [(m, None) for m in (re7500, cyl, box2d)]
     timed += [slice_meshes["resolvent", torch.float32], slice_meshes["upo", torch.float64]]
     timed += [(bfs, (1 / 500, 1e-2)), (big, (1e-3, 5e-4)), (blocks[0], None)]
-    for m, nu_dt in timed:
-        args = mesh_args(m, (2,), nu_dt)
+    timed = [(m, nu_dt, (2,)) for m, nu_dt in timed]
+    timed.append((boussinesq["thermosyphon", torch.float64], (1.0, TS_DT), ()))
+    for m, nu_dt, lead in timed:
+        args = mesh_args(m, lead, nu_dt)
         key = f"{list(args[0].shape)} {SHORT[m.dtype]}"
         kern, plain = [], []
         for _ in range(3):  # in turns: plain, kernel, kernel, plain, ...
@@ -404,7 +443,7 @@ def kernel_phase(dev):
             kern.append(device_ms(lambda: hk.helmholtz2d(*args)))
             kern.append(device_ms(lambda: hk.helmholtz2d(*args)))
             plain.append(device_ms(lambda: hk.helmholtz2d_plain(*args)))
-        bound, by = bound_ms(m.basis.n, m.nel, 2, m.dtype)
+        bound, by = bound_ms(m.basis.n, m.nel, math.prod(lead), m.dtype)
         med = statistics.median(kern)
         times[key] = {"kernel_device_ms": kern, "plain_device_ms": plain, "bound_ms": bound,
                       "bound_by": by, "share_of_bound": bound / med,
@@ -1234,6 +1273,222 @@ def cylinder_split_phase(dev, state: dict) -> dict:
     return {"split cylinder Newton, 1 NCCL rank (phase 16e)": runs}
 
 
+# ---------------------------------------------------------------------------
+# the Boussinesq family (nscal = 1): Rayleigh-Benard onset, the thermosyphon
+# ---------------------------------------------------------------------------
+
+# examples/rayleigh_benard.py:22-23: the critical wavenumber (rigid-rigid)
+# and Chandrasekhar's critical Rayleigh number
+RB_KC, RB_RAC = 3.11632, 1707.762
+# the secant's bracket (tests/test_rayleigh_benard.py:56) and the example's
+# supercriticality check (examples/rayleigh_benard.py:26)
+RB_RAS = (1690.0, 1725.0, 1900.0)
+RB_FLOW = dict(viscosity=1.0, dt=1e-3, nscal=1, conductivity=(1.0,), vtol=1e-12, ptol=1e-12,
+               ttol=1e-12)
+
+
+def rb_box(dev, dtype=torch.float64):
+    """tests/test_rayleigh_benard.py:27-30's box: one critical wavelength
+    between rigid walls, 3 x 3 elements at order 6, the temperature fixed on
+    both walls."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+
+    return box_mesh((3, 3), ((0.0, 2 * np.pi / RB_KC), (0.0, 1.0)), CHANNEL, order=6,
+                    bc_temp={"y-": "t", "y+": "t"}, dtype=dtype, device=dev)
+
+
+def rb_propagator(mesh, ra: float):
+    """tests/test_rayleigh_benard.py:31-45 at Ra: the Boussinesq buoyancy
+    (0, Ra Pr theta) as the linear forcing, about the conduction state
+    u = 0, Theta = 1 - y, tau = 0.05 at dt = 1e-3 (50 steps a matvec)."""
+    from neklab_tpu_torch import ExponentialPropagator, FlowConfig, LinConfig
+
+    buoy = lambda m, u, th: torch.stack([torch.zeros_like(th[0]), ra * th[0]])
+    cfg = LinConfig(flow=FlowConfig(**RB_FLOW), lin_forcing_fn=buoy)
+    y = mesh.x[1]
+    return ExponentialPropagator(mesh, cfg, torch.zeros_like(torch.stack([y, y])),
+                                 torch.stack([1.0 - y]), tau=0.05, dt=1e-3)
+
+
+def rayleigh_phase(dev) -> int:
+    """Rayleigh-Benard onset (tests/test_rayleigh_benard.py, f64): the leading
+    eigenvalue sigma of the conduction state at Ra = 1690, 1725 and 1900
+    (ExponentialPropagator -> flow_vector_space(mesh, 1) ->
+    linear_stability_analysis_fixed_point, kdim 30, nev 1, tol 1e-8). The
+    oracle is Chandrasekhar's: the secant between 1690 and 1725 within 3.0
+    of Ra_c = 1707.762 (the reference test's bound), sigma(1690) < 0 <
+    sigma(1725) and sigma(1900) > 0, every Ritz residual below 1e-8. One
+    more matvec at Ra = 1900 with `stats` shows the scalar solves running
+    the kernel: its device count is the velocity and scalar CG iterations
+    plus one lift apply per solve. Returns the eigensolves' kernel runs,
+    from the device counter set to zero before them."""
+    from neklab_tpu_torch import flow_vector_space, linear_stability_analysis_fixed_point
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+
+    t0 = time.time()
+    mesh = rb_box(dev)
+    space = flow_vector_space(mesh, 1)
+    sigma, out, launches = {}, {}, 0
+    for ra in RB_RAS:
+        prop = rb_propagator(mesh, ra)
+        op = Counted(prop, dev)
+        hk.reset_launches(dev)
+        res = linear_stability_analysis_fixed_point(op, space, kdim=30, nev=1, tol=1e-8,
+                                                    maxiter=10, check_every=CHECK_EVERY)
+        runs = hk.launches(dev)
+        launches += runs
+        sigma[ra] = float(res.eigvals[0].real)
+        out[str(ra)] = {"sigma": sigma[ra], "lambda1": [res.eigvals[0].real, res.eigvals[0].imag],
+                        "residual": float(res.residuals[0]), "n_matvec": res.n_matvec,
+                        "s_per_matvec_median": statistics.median(op.seconds["matvec"]),
+                        "seconds": res.elapsed, "kernel_runs": runs}
+        assert res.residuals[0] < 1e-8, (ra, res.residuals)
+    stats = {}
+    hk.reset_launches(dev)
+    prop.matvec(space.rand(5), stats=stats)
+    one = hk.launches(dev)
+    implied = sum(stats["helmholtz"]) + sum(stats["scalar"]) + 2 * prop.nsteps
+    lo, hi, sup = RB_RAS
+    ra_c = lo + (hi - lo) * (-sigma[lo]) / (sigma[hi] - sigma[lo])
+    phase("rayleigh", t0, nel=mesh.nel, nsteps=prop.nsteps, by_ra=out, ra_c=ra_c,
+          ra_c_oracle=RB_RAC, ra_c_err=abs(ra_c - RB_RAC), ra_c_bound=3.0,
+          matvec_cg_iters={k: sum(v) for k, v in stats.items()}, matvec_kernel_runs=one,
+          matvec_kernel_runs_implied=implied, kernel_runs=launches)
+    assert sigma[lo] < 0 < sigma[hi], sigma
+    assert abs(ra_c - RB_RAC) < 3.0, ra_c
+    assert sigma[sup] > 0, sigma
+    assert one == implied and sum(stats["scalar"]) > 0, (one, stats)
+    return launches
+
+
+TS_PR, TS_RA = 0.2, 510.0  # examples/thermosyphon_baseflow.py:20, 25
+TS_NSPIN, TS_DT, TS_KDIM = 1200, 2.5e-3, 40  # its `medium` preset (:58)
+TS_FLOW = dict(viscosity=TS_PR, dt=TS_DT, nscal=1, conductivity=(1.0,), vtol=1e-11, ptol=1e-10,
+               ttol=1e-11)
+# the reference's sigma_1, sigma_2 and their Ritz residuals for this preset,
+# from the JAX package on the CPU:
+#   JAX_PLATFORMS=cpu python examples/thermosyphon_baseflow.py --preset medium --f64 --platform cpu
+# (its eigvals line: 8 matvecs, Newton |F| 6.7e-15; the residuals of the same
+# eigensolve, which the example does not print, from the result of its
+# linear_stability_analysis_fixed_point call)
+TS_REF_SIGMA = (-11.79569415027629, -46.135177845127274)
+TS_REF_RES = (0.0, 3.112166121028129e-08)
+
+
+def thermosyphon_mesh(dev, dtype=torch.float64):
+    """The `medium` heated annulus: 4 x 20 elements at order 6, walls at
+    r = 0.6 and 1.0, the temperature fixed on both."""
+    from neklab_tpu_torch.mesh.cylinder import annulus_mesh
+
+    return annulus_mesh(4, 20, r_in=0.6, r_out=1.0, order=6, grading=1.0, outer_bc="W",
+                        bc_temp=("t", "t"), dtype=dtype, device=dev)
+
+
+def thermosyphon_phase(dev) -> dict:
+    """The thermosyphon pipeline of examples/thermosyphon_baseflow.py at its
+    `medium` preset in f64 (--f64: vtol 1e-11, ptol 1e-10, ttol 1e-11), Pr
+    0.2, Ra 510, the wall temperature 0.5 (1 + tanh(-20 y)) as the scalar's
+    lift: TS_NSPIN `advance` steps with the buoyancy as `forcing_fn`, then
+    FixedPointSystem (tau 0.3, tb) -> newton_fixed_point_iteration (tol
+    1e-8, GMRES kdim 25), then ExponentialPropagator about the Newton state
+    -> linear_stability_analysis_fixed_point (kdim 40, nev 2, tol 1e-6), and
+    the discrete-adjoint identity of tests/test_thermosyphon.py:80-86 on
+    that propagator. Asserts max|u| > 1e-3 after the spin-up, Newton's
+    convergence with |F| < 1e-8, both Ritz residuals and the identity below
+    1e-6, sigma_1 within 1e-4 relative of the reference's (TS_REF_SIGMA)
+    and sigma_2 within (r_2 + r_2,ref) / (tau |mu_2|) of it, the bound its
+    residuals give. The spin-up's kernel runs are its velocity and scalar
+    CG iterations plus two applies per solve (the lift, the warm start).
+    Returns the kernel runs of the spin-up and of the analyses, from the
+    device counter set to zero before each."""
+    from neklab_tpu_torch import (ExponentialPropagator, FixedPointSystem, FlowConfig, LinConfig,
+                                  advance, build_e_preconditioner, flow_vector, flow_vector_space,
+                                  initial_state, linear_stability_analysis_fixed_point,
+                                  newton_fixed_point_iteration)
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.ops import helmholtz_kernel as hk
+
+    t0 = time.time()
+    mesh = thermosyphon_mesh(dev)
+    buoy = lambda m, u, th: torch.stack([torch.zeros_like(th[0]), TS_PR * TS_RA * th[0]])
+    fc = FlowConfig(**TS_FLOW, forcing_fn=lambda m, t, u, th: buoy(m, u, th))
+    cfg = LinConfig(flow=fc, lin_forcing_fn=buoy)
+    tb = torch.stack([0.5 * (1.0 + torch.tanh(-20.0 * mesh.x[1]))])
+    space = flow_vector_space(mesh, 1)
+    runs, seconds = {}, {}
+
+    # the spin-up, its solvers built first so that the count below is the
+    # steps' alone
+    orders = ns.bdf_orders(fc, TS_NSPIN)
+    psolves = ns.pressure_solvers(mesh, fc, orders, build_e_preconditioner(mesh, TS_DT / (11 / 6)))
+    vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
+    st = initial_state(mesh, fc, theta=tb)
+    spin = {}
+    hk.reset_launches(dev)
+    t1 = time.time()
+    st = advance(mesh, fc, st, TS_NSPIN, tb=tb, psolves=psolves, vsolves=vsolves, stats=spin)
+    runs["spin-up"] = hk.launches(dev)  # synchronizes
+    seconds["spin-up"] = time.time() - t1
+    umax = float(st.u.abs().max())
+    implied = sum(spin["helmholtz"]) + sum(spin["scalar"]) + 4 * TS_NSPIN
+    assert bool(torch.isfinite(st.u).all()) and bool(torch.isfinite(st.theta).all())
+    assert umax > 1e-3, umax  # buoyancy has started the circulation
+
+    hk.reset_launches(dev)
+    t1 = time.time()
+    system = FixedPointSystem(mesh, cfg, tau=0.3, tb=tb, dt=TS_DT)
+    nres = newton_fixed_point_iteration(system, flow_vector(mesh, 1, u=st.u, theta=st.theta),
+                                        space, tol=1e-8, maxiter=12, gmres_kdim=25)
+    seconds["newton"] = time.time() - t1
+    t1 = time.time()
+    expA = ExponentialPropagator(mesh, cfg, nres.x["u"], nres.x["theta"], tau=0.3, dt=TS_DT)
+    op = Counted(expA, dev)
+    # convergence tested every 8 columns, as in the example (every 2 stops at 4
+    # matvecs, where sigma_2's residual, 4e-7 in a CPU rehearsal, leaves it
+    # ~1 from the reference's)
+    eres = linear_stability_analysis_fixed_point(op, space, kdim=TS_KDIM, nev=2, tol=1e-6,
+                                                 maxiter=10)
+    seconds["eigensolve"] = time.time() - t1
+    # the exact discrete adjoint on the curved, thermally coupled operator
+    t1 = time.time()
+    v, w = space.rand(3), space.rand(4)
+    mv = expA.matvec(v)
+    lhs, rhs = space.dot(mv, w), space.dot(v, expA.rmatvec(w))
+    identity = abs(lhs - rhs) / (space.norm(mv) * space.norm(w) + 1e-300)
+    seconds["adjoint"] = time.time() - t1
+    runs["analyses"] = hk.launches(dev)
+
+    sig = [float(v.real) for v in eres.eigvals]
+    res = [float(r) for r in eres.residuals]
+    mu2 = abs(complex(eres.multipliers[1]))
+    bound2 = (res[1] + TS_REF_RES[1]) / (expA.tau * mu2)
+    diffs = [abs(s - r) for s, r in zip(sig, TS_REF_SIGMA)]
+    phase("thermosyphon", t0, nel=mesh.nel, order=mesh.basis.n - 1, dt=TS_DT, nspin=TS_NSPIN,
+          spinup_s=seconds["spin-up"], spinup_ms_per_step=1e3 * seconds["spin-up"] / TS_NSPIN,
+          spinup_cg_iters_per_step={k: sum(v) / TS_NSPIN for k, v in spin.items()},
+          max_u=umax, newton_converged=nres.converged, newton_iterations=nres.iterations,
+          newton_history=nres.history, newton_residual=nres.residual_norm,
+          gmres_matvecs=nres.matvecs, newton_s=seconds["newton"],
+          newton_nsteps=next(iter(system.derived.values())).nsteps, eig_nsteps=expA.nsteps,
+          eig_n_matvec=eres.n_matvec, eig_s=seconds["eigensolve"],
+          s_per_matvec_median=statistics.median(op.seconds["matvec"]),
+          eigvals=[[v.real, v.imag] for v in eres.eigvals], residuals=res,
+          reference_sigma=TS_REF_SIGMA, reference_residuals=TS_REF_RES,
+          sigma1_rel_diff=diffs[0] / abs(TS_REF_SIGMA[0]), sigma1_rel_bound=1e-4,
+          sigma2_diff=diffs[1], sigma2_bound=bound2, mu2_abs=mu2,
+          adjoint_identity_rel=identity, lhs=lhs, rhs=rhs, adjoint_s=seconds["adjoint"],
+          tape_bytes=expA.adjoint.tape_bytes, spinup_kernel_runs_implied=implied,
+          kernel_runs=runs)
+    assert runs["spin-up"] == implied and sum(spin["scalar"]) > 0, (runs, implied)
+    assert nres.converged and nres.residual_norm < 1e-8, nres.history
+    assert max(res) < 1e-6, res
+    assert identity < 1e-6, (lhs, rhs)
+    assert diffs[0] <= 1e-4 * abs(TS_REF_SIGMA[0]), (sig, TS_REF_SIGMA)
+    assert diffs[1] <= bound2, (sig, TS_REF_SIGMA, bound2)
+    assert runs["analyses"] > 0
+    return runs
+
+
 # the example sweeps 0.6, 0.8, 1.0 and 1.2; the two ends keep the run inside
 # its limit (PERF.md section 4)
 RESOLVENT_OMEGAS = (0.6, 1.2)
@@ -1335,9 +1590,9 @@ UPO_F = 2.2165970612221577e-07  # UPO_r05.json: the reference's |F| at this orbi
 # dimension of 48 in place of the example's 32, so that the solve can stop
 # at its convergence check without a restart (at 1e-7 it took 52 matvecs
 # with the restart at 32 and 53 at 48, PERF.md section 6). The check runs
-# every UPO_CHECK columns: a monodromy matvec is 884 steps, and a check
-# every 8 (eigs' default) ran up to 7 of them past convergence
-UPO_KDIM, UPO_TOL, UPO_CHECK = 48, 1e-6, 2
+# after every column: a monodromy matvec is 884 steps, and a check every 8
+# (eigs' default) ran up to 7 of them past convergence, one every 2 up to 1
+UPO_KDIM, UPO_TOL, UPO_CHECK = 48, 1e-6, 1
 
 
 def upo_phase(dev, kdim: int = UPO_KDIM) -> dict:
@@ -2107,6 +2362,14 @@ def box3d_phase(dev):
 # does not reach converges without a restart: 336 matvecs, against 407 at
 # 60 and 464 at 100 (PERF.md section 6)
 CHANNEL3D_KDIM, CHANNEL3D_TOL = 400, 5e-4
+# the solves' tolerance (vtol = ptol) of phase 15's eigensolve: 1e-10 -> 1e-7
+# to make room for phases 17 and 18 (95.3 -> 52.6 E-CG iterations a step,
+# one matvec counted on the CPU). The shear modes carry no pressure and the
+# eigensolve asks Ritz residuals of 5e-4, so the oracle is met (within
+# 6.8e-7, PERF.md section 6), but the eigensolve no longer checks what the
+# f64 solves reach beyond float32's (ROADMAP.md); (c) keeps 1e-10, where the
+# residual projection has iterations to remove
+CHANNEL3D_SOLVE_TOL, CHANNEL3D_RECYCLE_TOL = 1e-7, 1e-10
 
 
 def channel3d_phase(dev):
@@ -2114,8 +2377,8 @@ def channel3d_phase(dev):
     (box_mesh -> ExponentialPropagator -> flow_vector_space ->
     linear_stability_analysis_fixed_point): plane Poiseuille at Re = 500
     extruded spanwise, (4, 5, 2) elements at order 6 on [0, 2 pi] x [-1, 1]
-    x [0, 2], periodic in x and z, f64, vtol = ptol = 1e-10, tau = 0.5,
-    nev 2, with the driver's files (spectrum, mode files, timers.log)
+    x [0, 2], periodic in x and z, f64, vtol = ptol = CHANNEL3D_SOLVE_TOL,
+    tau = 0.5, nev 2, with the driver's files (spectrum, mode files, timers.log)
     written to .scratch/channel3d. The oracle is analytic. The
     spanwise-uniform shear modes cos(pi y / 2) e_x and cos(pi y / 2) e_z
     both have lambda_1 = -nu (pi / 2)^2, a double eigenvalue; the next is
@@ -2125,9 +2388,10 @@ def channel3d_phase(dev):
     (tests/test_torch_3d_propagator.py, in both packages). Asserts the
     leading eigenvalue within 1e-5 of lambda_1, the second within 1e-5 of
     lambda_1 or of -nu pi^2, and both Ritz residuals below the solve's
-    tol. Then (c): one matvec of the same propagator with recycle 0 and
-    RECYCLE from one C0 field of the seed: seconds per matvec, pressure
-    iterations per step, the two outputs' difference under 1e3 ptol."""
+    tol. Then (c): one matvec of the same propagator built at vtol = ptol
+    = CHANNEL3D_RECYCLE_TOL, with recycle 0 and RECYCLE, from one C0 field
+    of the seed: seconds per matvec, pressure iterations per step, the two
+    outputs' difference under 1e3 ptol."""
     from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh,
                                   flow_vector_space, linear_stability_analysis_fixed_point)
     from neklab_tpu_torch.models.linearized import propagate
@@ -2138,15 +2402,20 @@ def channel3d_phase(dev):
                     dtype=torch.float64, device=dev)
     y = mesh.x[1]
     re = 500.0
-    cfg = LinConfig(flow=FlowConfig(viscosity=1 / re, dt=1e-2, vtol=1e-10, ptol=1e-10))
-    prop = ExponentialPropagator(mesh, cfg, torch.stack([1 - y**2, 0 * y, 0 * y]), tau=0.5,
-                                 cfl=0.5)
+    base = torch.stack([1 - y**2, 0 * y, 0 * y])
+
+    def propagator(tol):
+        cfg = LinConfig(flow=FlowConfig(viscosity=1 / re, dt=1e-2, vtol=tol, ptol=tol))
+        return ExponentialPropagator(mesh, cfg, base, tau=0.5, cfl=0.5)
+
+    prop = propagator(CHANNEL3D_SOLVE_TOL)
     outdir = os.path.join(ROOT, ".scratch", "channel3d")
     res = linear_stability_analysis_fixed_point(prop, flow_vector_space(mesh, 0),
                                                 kdim=CHANNEL3D_KDIM, nev=2, tol=CHANNEL3D_TOL,
                                                 maxiter=2, outdir=outdir,
                                                 check_every=CHECK_EVERY)
     # (c) one matvec with recycle 0 and RECYCLE from the same start
+    prop = propagator(CHANNEL3D_RECYCLE_TOL)
     th = torch.zeros((0,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
@@ -2165,7 +2434,7 @@ def channel3d_phase(dev):
         recycled[f"pressure_iters_per_step_recycle{r}"] = statistics.mean(stats["pressure"])
         recycled[f"pressure_iters_post_ramp_recycle{r}"] = statistics.mean(stats["pressure"][2:])
     recycled["rel_diff"] = rel(mv[RECYCLE], mv[0])
-    recycled["rel_diff_bound"] = 1e3 * 1e-10
+    recycled["rel_diff_bound"] = 1e3 * CHANNEL3D_RECYCLE_TOL
     lam1, lam3 = -(1 / re) * np.pi**2 * np.array([0.25, 1.0])
     dist = np.array([abs(res.eigvals[0] - lam1),
                      min(abs(res.eigvals[1] - lam1), abs(res.eigvals[1] - lam3))])
@@ -2861,12 +3130,12 @@ def _sharded_cases(dev, numbers: dict, runs: dict) -> None:
 
 def eigs_depth(dev, case: str, settings: list[str]) -> None:
     """`--eigs-depth channel3d|re7500 kdim:tol:maxiter ...`: the matvecs and
-    seconds of phase 15's or phase 6's eigensolve at other Krylov
-    dimensions and tolerances, one JSON line per setting (the evidence for
-    CHANNEL3D_KDIM and TOL_RE7500). channel3d: `eigs` on phase 15's
-    propagator, nev 2 from seed 1234, printing each cycle's eigenvalues and
-    residuals; re7500: phase 6's eigensolve with the distance of the
-    nearest eigenvalue from the Orr-Sommerfeld mode."""
+    seconds of phase 15's or phase 6's eigensolve at other Krylov dimensions
+    and tolerances, one JSON line per setting (the evidence for
+    CHANNEL3D_KDIM, CHANNEL3D_TOL and TOL_RE7500). channel3d: `eigs` on
+    phase 15's propagator, nev 2 from seed 1234, printing each cycle's
+    eigenvalues and residuals; re7500: phase 6's eigensolve with the
+    distance of the nearest eigenvalue from the Orr-Sommerfeld mode."""
     from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh, eigs,
                                   flow_vector_space, linear_stability_analysis_fixed_point)
     from neklab_tpu_torch.utils.orr_sommerfeld import orr_sommerfeld_spectrum
@@ -2879,7 +3148,8 @@ def eigs_depth(dev, case: str, settings: list[str]) -> None:
             mesh = box_mesh((4, 5, 2), ((0.0, 2 * np.pi), (-1.0, 1.0), (0.0, 2.0)), CHANNEL3,
                             order=6, dtype=torch.float64, device=dev)
             y = mesh.x[1]
-            cfg = LinConfig(flow=FlowConfig(viscosity=1 / 500, dt=1e-2, vtol=1e-10, ptol=1e-10))
+            cfg = LinConfig(flow=FlowConfig(viscosity=1 / 500, dt=1e-2, vtol=CHANNEL3D_SOLVE_TOL,
+                                            ptol=CHANNEL3D_SOLVE_TOL))
             prop = ExponentialPropagator(mesh, cfg, torch.stack([1 - y**2, 0 * y, 0 * y]),
                                          tau=0.5, cfl=0.5)
             t0 = time.time()
@@ -2910,21 +3180,40 @@ def eigs_depth(dev, case: str, settings: list[str]) -> None:
 
 # the schedule: the main process runs MAIN_FIRST (the phases that time the
 # card alone), then starts one process per group of SIDE (`--side a,b`:
-# those phases one after another) and runs MAIN_THEN beside them. Phase 15
-# is bound by the device and runs at its own speed only alone, so it comes
-# last in the main process, where most of it runs after the groups have
-# ended (PERF.md section 6). The groups are packed to end together (phase
-# 10 alone is the longest); phase 16 runs first in its group, so that its
-# four ranks do not share the card with phase 15; phase 16e follows phase 8
-# in its process, from phase 8's spun-up state
+# those phases one after another) and runs MAIN_THEN beside them, then
+# MAIN_LAST. Phase 15 is bound by the device and runs at its own speed only
+# alone, so it comes last in the main process, after the groups have ended
+# (PERF.md section 6). The groups are packed to end together (phase 10
+# alone is the longest); phase 16e follows phase 8 in its process, from
+# phase 8's spun-up state
 MAIN_FIRST = ("kernel", "box2d")
 # phase 7 runs in the group that ends first, on phase 6's mu_1 from the
 # main process (MU1_FILE): the main process's chain, phase 15 last, ended
 # the script (PERF.md section 6, PR 10)
 SIDE = ("upo", "oracle,box21k,box3d", "parity_r,parity_u,cylinder,cylinder_split,growth",
         "sharded,otd", "bfs,resolvent")
-MAIN_THEN = ("parity", "nonlinear", "parity_3d", "re7500", "channel3d")
+# the Boussinesq phases (17, 18) run in the main process before phase 15:
+# there x seconds of them delay phase 15's start, of which beside the groups
+# it does ~1/7 of its alone speed, so the end moves by ~x/7; in a side group
+# they would move the last group's end, and the script's, by ~0.8 x
+# (PERF.md section 6)
+MAIN_THEN = ("parity", "nonlinear", "parity_3d", "re7500", "rayleigh", "thermosyphon")
+# phase 15 waits for the side groups to end (until MAIN_LAST_BY seconds from
+# the start): beside a group it barely moves and slows that group's
+# host-bound CGs, so the end is the last group's plus its time alone
+# (PERF.md section 6)
+MAIN_LAST, MAIN_LAST_BY = ("channel3d",), 1000.0
 MU1_FILE = os.path.join(ROOT, ".scratch", "mu1.json")
+
+
+def wait_for(procs, deadline: float) -> None:
+    """Wait for every process of procs to exit, or until the time.time()
+    deadline."""
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
 
 
 def write_mu1(mu1: complex) -> None:
@@ -3014,6 +3303,12 @@ def run_phase(name: str, dev, state: dict):
         return sharded_phase(dev)
     elif name == "cylinder_split":
         return cylinder_split_phase(dev, state)
+    elif name == "rayleigh":
+        return {"Rayleigh-Benard onset (phase 17)": rayleigh_phase(dev)}
+    elif name == "thermosyphon":
+        runs = thermosyphon_phase(dev)
+        return {"thermosyphon spin-up (phase 18)": runs["spin-up"],
+                "thermosyphon Newton, eigensolve, adjoint (phase 18)": runs["analyses"]}
     else:
         raise SystemExit(f"chip_smoke: no phase {name!r}")
     return None
@@ -3052,6 +3347,7 @@ def main() -> None:
         runs, state = {}, {}  # state: what a phase hands a later one of its group
         for name in args[1].split(","):
             runs.update(run_phase(name, dev, state) or {})
+            print(f"ended {name} {time.time():.3f}", flush=True)  # for the main's timeline
         print("launches " + json.dumps(runs), flush=True)
         if "adjoint_launches" in state:
             print(f"adjoint_launches {state['adjoint_launches']}", flush=True)
@@ -3086,8 +3382,10 @@ def main() -> None:
           ptxas=ptxas_report(_build.last_build["log"]))
 
     state: dict = {}
+    ended = {}  # the timeline: seconds from the start at which each phase ended
     for name in MAIN_FIRST:
         run_phase(name, dev, state)
+        ended[name] = time.time() - t_start
 
     # each side process writes to a file of its own (under .scratch/, which
     # git ignores), so what it printed survives its being stopped
@@ -3106,12 +3404,12 @@ def main() -> None:
     try:
         for name in MAIN_THEN:
             by_path.update(run_phase(name, dev, state) or {})
-        for proc in side.values():
-            # the whole run stays inside 1200 s
-            try:
-                proc.wait(timeout=max(1.0, t_start + 1150 - time.time()))
-            except subprocess.TimeoutExpired:
-                pass
+            ended[name] = time.time() - t_start
+        wait_for(side.values(), t_start + MAIN_LAST_BY)
+        for name in MAIN_LAST:
+            by_path.update(run_phase(name, dev, state) or {})
+            ended[name] = time.time() - t_start
+        wait_for(side.values(), t_start + 1150)  # the whole run stays inside 1200 s
     finally:
         for proc in side.values():
             if proc.poll() is None:
@@ -3131,7 +3429,13 @@ def main() -> None:
         for ln in outs[group].splitlines():
             if ln.startswith("adjoint_launches "):
                 state["adjoint_launches"] = int(ln.split()[1])
+            if ln.startswith("ended "):
+                _, name, at = ln.split()
+                ended[name] = float(at) - t_start
 
+    print("timeline " + json.dumps({k: round(v, 1) for k, v in sorted(ended.items(),
+                                                                      key=lambda kv: kv[1])}),
+          flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{

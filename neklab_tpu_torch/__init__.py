@@ -1,4 +1,4 @@
-"""neklab_tpu_torch: the PyTorch/CUDA port of neklab_tpu.
+"""neklab_tpu_torch: the PyTorch/CUDA port of `neklab_tpu`.
 
 The modal-stability eigensolves, direct and adjoint (mesh -> SEM operators
 -> BDF3/EXT3 linearized propagator -> Krylov-Schur eigs), transient growth,
@@ -48,10 +48,8 @@ __version__ = "0.1.0"
 # Krylov layer
 from .krylov import (AdjointOperator, EigsResult, FunctionOperator, GmresResult,  # noqa: E402
                      KrylovBasis, LinearOperator, NewtonResult, NonlinearSystem, SvdsResult,
-                     VectorSpace, cg, constant_tol, dynamic_tol, euclidean_space, fgmres, svds)
-from .krylov.eigs import eigs  # noqa: E402
-from .krylov.gmres import gmres  # noqa: E402
-from .krylov.newton import newton  # noqa: E402
+                     VectorSpace, cg, constant_tol, dynamic_tol, eigs, euclidean_space, fgmres,
+                     gmres, newton, svds)
 
 # meshes
 from .mesh.bfs import bfs_mesh  # noqa: E402

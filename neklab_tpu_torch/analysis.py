@@ -2,7 +2,7 @@
 growth of a fixed point, and the Newton-Krylov computation of the fixed
 point itself.
 
-Counterparts of `neklab_tpu.analysis.linear_stability_analysis_fixed_point`,
+Counterparts of `neklab_tpu/analysis.py::linear_stability_analysis_fixed_point`,
 `transient_growth_analysis_fixed_point` and `newton_fixed_point_iteration`,
 writing the same `<dir|adj>_eigenspectrum.npy`, `singular_spectrum.dat`,
 `residual.dat`, eigenvector field files (`<dir|adj>mode0.f<NNNNN>.npz`) and

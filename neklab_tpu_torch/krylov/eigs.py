@@ -3,7 +3,7 @@
 Python orchestration over dict-of-tensor vectors; the vector algebra runs on
 the vectors' device (see space.KrylovBasis) and the small dense algebra
 (Schur form, eigendecomposition of the projected matrix) on the host in
-numpy/scipy. Counterpart of `neklab_tpu.krylov.eigs`, with its
+numpy/scipy. Counterpart of `neklab_tpu/krylov/eigs.py`, with its
 Arnoldi-factorization checkpoint in the reference's npz layout.
 """
 

@@ -4,7 +4,7 @@ Used for the Newton-Krylov Jacobian solves (and later the resolvent's
 (I - exptA) solves), where each matvec is a full time integration. The
 vectors stay on their device; the least-squares problem on the projected
 Hessenberg matrix is solved on the host in numpy. Counterpart of
-`neklab_tpu.krylov.gmres` (LightKrylov `gmres_rdp`, `fgmres`, `cg`).
+`neklab_tpu/krylov/gmres.py` (LightKrylov `gmres_rdp`, `fgmres`, `cg`).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Solves F(x) = 0 for a `NonlinearSystem` (response + Jacobian operator): the
 Jacobian system of each iteration is solved by GMRES to an absolute
 tolerance set by the scheduler, with optional bisection backtracking.
-Counterpart of `neklab_tpu.krylov.newton` (LightKrylov `newton` and
+Counterpart of `neklab_tpu/krylov/newton.py` (LightKrylov `newton` and
 neklab's `nek_constant_tol` / `nek_dynamic_tol`).
 """
 

@@ -3,7 +3,7 @@
 Golub-Kahan-Lanczos with full CGS2 reorthogonalization of both bases (stacked
 buffers, batched Gram products), dense SVD of the projected bidiagonal
 matrix on the host. Each iteration costs one matvec and one rmatvec.
-Counterpart of `neklab_tpu.krylov.svd`, with its Lanczos checkpoint in the
+Counterpart of `neklab_tpu/krylov/svd.py`, with its Lanczos checkpoint in the
 reference's npz layout.
 """
 

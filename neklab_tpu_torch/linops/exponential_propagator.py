@@ -4,7 +4,7 @@ matvec integrates the linearized Navier-Stokes equations over the horizon
 tau (nsteps * dt == tau exactly) about a frozen base flow; rmatvec is the
 EXACT discrete adjoint (see models/linearized.py). Eigenvalues of A are
 recovered as log(mu)/tau from Ritz values mu of M. Counterpart of
-`neklab_tpu.linops.exponential_propagator` (the chunked path only bounded
+`neklab_tpu/linops/exponential_propagator.py` (the chunked path only bounded
 the TPU compiler's program size and has no counterpart here).
 """
 

@@ -6,7 +6,7 @@ streamwise plane average, before and after the time integration:
 
   M_alpha = P_alpha exp(tau A) P_alpha.
 
-Counterpart of `neklab_tpu.linops.projected`: on a structured box mesh the
+Counterpart of `neklab_tpu/linops/projected.py`: on a structured box mesh the
 plane average is a weighted contraction over the (element-x, node-x) axes
 of the element-last field. Each element's share of the cos (and sin)
 coefficients of every row of elements is summed into a [..., n, nely]

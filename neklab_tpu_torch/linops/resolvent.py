@@ -17,7 +17,7 @@ rmatvec is the exact Hermitian adjoint of this discrete pipeline:
 with S* GMRES on (I - exp(tau A)*) over the exact discrete adjoint
 propagator, Qh* the quarter-period one, and G*, Qf* the mass-weighted
 transposes of the forced propagations. Counterpart of
-`neklab_tpu.linops.resolvent`, which takes G* and Qf* from
+`neklab_tpu/linops/resolvent.py`, which takes G* and Qf* from
 `jax.linear_transpose`; here each forced propagation is recorded once on
 autograd's tape from a zero force and initial condition (every CG exits at
 iteration 0) and every call is a backward of it, as `make_adjoint_propagator`

@@ -1,6 +1,6 @@
 """Backward-facing-step mesh (L-shaped multi-block domain).
 
-Counterpart of `neklab_tpu.mesh.bfs`. Geometry (Nek5000's back_fstep case):
+Counterpart of `neklab_tpu/mesh/bfs.py`. Geometry (Nek5000's back_fstep case):
 inflow channel of height 1 for x in [-li, 0], sudden expansion to height
 1 + s for x in [0, lo]:
 

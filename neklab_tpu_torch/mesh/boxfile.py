@@ -1,6 +1,6 @@
 """genbox `.box` file reader.
 
-Counterpart of `neklab_tpu.mesh.boxfile`. Builds a SemMesh directly from
+Counterpart of `neklab_tpu/mesh/boxfile.py`. Builds a SemMesh directly from
 Nek5000's genbox input files (e.g. rayBen/baseflow/rayBen.box,
 thermosyphon/baseflow/tsyphon.box), replacing the genbox -> .re2 -> genmap
 toolchain with a single call.

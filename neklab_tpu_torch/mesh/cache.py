@@ -1,6 +1,6 @@
 """Persistent mesh-preprocessing cache.
 
-Counterpart of `neklab_tpu.mesh.cache`. Building a SemMesh from a `.re2`
+Counterpart of `neklab_tpu/mesh/cache.py`. Building a SemMesh from a `.re2`
 file is host-side Python (Gordon-Hall coordinates, coincident-node
 connectivity, periodic pairing); genmap's build-once-use-many contract
 keeps the result on disk. This module persists the port's SemMesh: the

@@ -1,6 +1,6 @@
 """Global DOF numbering for conforming SEM meshes.
 
-Counterpart of `neklab_tpu.mesh.connectivity` (host numpy, the same
+Counterpart of `neklab_tpu/mesh/connectivity.py` (host numpy, the same
 arithmetic). `connectivity_from_coords` derives the gather-scatter numbering
 from the GLL node coordinates alone: coincident nodes (within tol) get the
 same global id. It stands in for Nek5000's `genmap` and gslib set-up for any

@@ -2,7 +2,7 @@
 
 `SemMesh` bundles everything the operators need: geometric factors, the
 gather-scatter numbering, multiplicity weights and the Dirichlet masks, all
-as tensors on ONE device. It mirrors `neklab_tpu.mesh.core.SemMesh` field by
+as tensors on ONE device. It mirrors `neklab_tpu/mesh/core.py::SemMesh` field by
 field (without the reference's face-pair and roll exchange schedules: the
 port's gather-scatter is one gather form for every mesh), plus the 1-D basis
 matrices the operators contract with and the gather table of `sem.dssum`,

@@ -5,7 +5,7 @@ the angle) with exact circular-arc element geometry: the GLL nodes are
 placed by the polar map, so the curvature is represented to the full
 polynomial order. Radial element edges take a geometric grading that
 clusters resolution at the cylinder. Counterpart of
-`neklab_tpu.mesh.cylinder` (the same numpy arithmetic), finished by the
+`neklab_tpu/mesh/cylinder.py` (the same numpy arithmetic), finished by the
 port's `build_mesh`.
 
 BCs: the inner circle is a wall ('W'); the outer circle is a wall too

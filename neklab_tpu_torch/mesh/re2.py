@@ -1,6 +1,6 @@
 """Nek5000 binary `.re2` mesh importer.
 
-Counterpart of `neklab_tpu.mesh.re2`. Reads Nek5000's mesh files (written by
+Counterpart of `neklab_tpu/mesh/re2.py`. Reads Nek5000's mesh files (written by
 genbox/gmsh2nek/reatore2) and builds a SemMesh directly:
 
   * element corner vertices -> GLL coordinates by Gordon-Hall transfinite

@@ -9,7 +9,7 @@ homogeneous Dirichlet BCs (the perturbation masks). `propagate` is the
 exponential-propagator matvec: a BDF1/BDF2 self-starting ramp, then BDF3
 steps in a Python loop; `propagate_forced` adds a harmonic body force
 (the resolvent's right-hand side). Counterpart of
-`neklab_tpu.models.linearized` (its chunked form bounded the TPU compiler's
+`neklab_tpu/models/linearized.py` (its chunked form bounded the TPU compiler's
 program size and has no counterpart here).
 
 Adjoint: the EXACT discrete adjoint with respect to the mass-weighted inner
@@ -172,8 +172,9 @@ def step_lin(
 
     psolve, vsolve, tsolves: this order's pressure, velocity and scalar
     solvers (`navier_stokes.pressure_solvers`, `navier_stokes.velocity_solvers`).
-    stats: optional dict; the velocity and pressure CG iteration counts are
-    appended to stats["helmholtz"] and stats["pressure"]. force, source: a
+    stats: optional dict; the velocity, pressure and scalar CG iteration
+    counts are appended to stats["helmholtz"], stats["pressure"] and
+    stats["scalar"]. force, source: a
     body force [ndim, ...] and scalar sources [nscal, ...] for this step
     (the reference's forcing hook: resolvent forcing, OTD rank coupling).
     emap: overrides the explicit operator (`adjoint_explicit_lin_map` for
@@ -217,7 +218,7 @@ def step_lin(
         comps = []
         for i in range(cfg.nscal):
             rhs_t = mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i]
-            comps.append(tsolves[i](rhs_t, torch.zeros_like(state.theta[i])))
+            comps.append(tsolves[i](rhs_t, torch.zeros_like(state.theta[i]), stats=stats))
         theta_new = torch.stack(comps)
     else:
         theta_new = state.theta
@@ -362,7 +363,8 @@ class AdjointPropagator:
     def __call__(self, v_u, v_theta, stats: dict | None = None):
         """stats: optional dict; every transposed solve appends its CG's
         iteration count, under the forward solver's key ("helmholtz",
-        "pressure"), in the order the backward runs them (last step first)."""
+        "pressure", "scalar"), in the order the backward runs them (last
+        step first)."""
         self._log.clear()
         out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
         if stats is not None:

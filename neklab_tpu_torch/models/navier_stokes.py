@@ -9,7 +9,7 @@ One step:
   3. pressure correction: solve E dp = -(q, div u*), update u and p
      (P(N)/P(N-2), no pressure BCs; see models/stokes.py).
 
-Counterpart of `neklab_tpu.models.navier_stokes`. The reference jits
+Counterpart of `neklab_tpu/models/navier_stokes.py`. The reference jits
 `advance` into one program per (mesh, nsteps) and lets jit's cache keep its
 solves; here every CG is a `PCG` built once per (dt, BDF order) and, on the
 card, captured as a CUDA graph when it is built. So `advance` takes its
@@ -128,7 +128,7 @@ def helmholtz_diag(mesh: SemMesh, h1, h2, mask) -> torch.Tensor:
     return mask * d + (1.0 - mask)
 
 
-def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
+def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter, key="helmholtz"):
     """Returns u = solve(rhs_weak, bc_val, stats=None, x0=None), which solves
     (h1 A + h2 B) u = rhs with u = bc_val on Dirichlet DOFs at fixed h1, h2.
 
@@ -143,8 +143,9 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
     iteration is built once here and, on the card, captured as a CUDA graph
     (`PCG`); the CG runs through `linear_solve`, so a reverse pass re-solves
     with it. stats: optional dict; each solve appends its CG's iteration
-    count to stats["helmholtz"], and so does each backward of a solve
-    recorded with that dict. The solver's `PCG` is `solve.cg`.
+    count to stats[key] ("helmholtz"; the scalars' solvers log under
+    "scalar"), and so does each backward of a solve recorded with that
+    dict. The solver's `PCG` is `solve.cg`.
 
     x0: an optional guess of u (a C0 field, e.g. the extrapolated one),
     entered as the shift y = y0 + delta with op(delta) = b - op(y0), so the
@@ -191,7 +192,7 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter):
         if b.shape != like.shape:
             raise ValueError(f"helmholtz solve: right-hand side {tuple(b.shape)}, the solver "
                              f"was built for {tuple(like.shape)}")
-        log = _logger(stats, "helmholtz")
+        log = _logger(stats, key)
         kw = dict(project=consistent, log=log, param=s, dop=mass)
         if x0 is None:
             y = linear_solve(cg, b, tol, maxiter, **kw)
@@ -430,7 +431,7 @@ def velocity_solvers(mesh: SemMesh, cfg: FlowConfig, orders, vdiag, tdiags) -> d
         vsolve = make_helmholtz_solver(mesh, cfg.viscosity, cfg.rho * g0 / cfg.dt, mesh.vmask,
                                        vdiag, cfg.vtol, cfg.vmaxit)
         tsolves = [make_helmholtz_solver(mesh, cfg.conductivity[i], g0 / cfg.dt, mesh.tmask,
-                                         tdiags[i], cfg.ttol, cfg.vmaxit)
+                                         tdiags[i], cfg.ttol, cfg.vmaxit, key="scalar")
                    for i in range(cfg.nscal)]
         out[order] = (vsolve, tsolves)
     return out
@@ -480,9 +481,10 @@ def step(
     psolve, vsolve, tsolves: this order's pressure, velocity and scalar
     solvers at cfg.dt (`pressure_solvers`, `velocity_solvers`). ub, tb: the
     Dirichlet values of the velocity and scalars (zero when None), applied
-    as a lift through each solve. stats: optional dict; the velocity and
-    pressure CG iteration counts are appended to stats["helmholtz"] and
-    stats["pressure"]. dt: cfg.dt again as a 0-d tensor that carries a
+    as a lift through each solve. stats: optional dict; the velocity,
+    pressure and scalar CG iteration counts are appended to
+    stats["helmholtz"], stats["pressure"] and stats["scalar"] (one entry
+    per scalar). dt: cfg.dt again as a 0-d tensor that carries a
     forward-mode tangent (the period of a periodic orbit, d/dT): every use
     of dt then carries it, the solves' operators included. pbasis: an
     optional recycling basis of the pressure solve (`init_projection_basis`),
@@ -532,7 +534,7 @@ def step(
         tbsum = betas[0] * state.theta + betas[1] * state.tlag[0] + betas[2] * state.tlag[1]
         text = alphas[0] * state.theta + alphas[1] * state.tlag[0] + alphas[2] * state.tlag[1]
         theta_new = torch.stack([tsolves[i](mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i], tb[i],
-                                            x0=text[i], h2_now=g0 / dt)
+                                            stats=stats, x0=text[i], h2_now=g0 / dt)
                                  for i in range(cfg.nscal)])
     else:
         theta_new = state.theta

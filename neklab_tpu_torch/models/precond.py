@@ -1,6 +1,6 @@
 """Two-level additive Schwarz preconditioner for the pressure E operator.
 
-Counterpart of `neklab_tpu.models.precond`:
+Counterpart of `neklab_tpu/models/precond.py`:
 
   P^-1 r = local(r) + coarse(r)
 

@@ -37,6 +37,20 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b)
 
 
+_WARMUP_STREAMS: dict = {}
+
+
+def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream of each card on which every `PCG` warms up before
+    its capture. A stream of its own per build would leave cuBLAS a
+    workspace per stream (32 MiB on an H100, kept while the process runs),
+    so a caller that rebuilds its solvers (`advance_adaptive` at each new
+    dt) would grow device memory with every rebuild."""
+    if device not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[device]
+
+
 class PCG:
     """Preconditioned CG for one operator and preconditioner, on buffers
     shaped like `like`. With a CUDA `like`, the iteration is captured as a
@@ -72,7 +86,7 @@ class PCG:
         self.graphed = like.is_cuda and (part is None or part.capturable)
         if self.graphed:
             # warm up on a side stream (lazy library set-up), then capture
-            side = torch.cuda.Stream(like.device)
+            side = _warmup_stream(like.device)
             side.wait_stream(torch.cuda.current_stream(like.device))
             with torch.cuda.stream(side):
                 self._iterate()

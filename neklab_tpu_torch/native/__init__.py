@@ -1,6 +1,6 @@
 """ctypes bindings for the native (C++) mesh-preprocessing library.
 
-Counterpart of `neklab_tpu.native`, with its own copy of the source
+Counterpart of `neklab_tpu/native/`, with its own copy of the source
 (`neklab_native.cpp`). g++ compiles it at first use into
 `neklab_tpu_torch/build/`, under a name that carries a hash of the source
 and the flags (as `ops/_build.py` names the CUDA library), written under a

@@ -1,6 +1,6 @@
 """Element-local and assembled SEM operators on torch tensors.
 
-Counterparts of `neklab_tpu.ops.sem`. Fields are element-last
+Counterparts of `neklab_tpu/ops/sem.py`. Fields are element-last
 `[..., pts..., nel]`; vector fields put their component axis first. "Weak"
 operators return quadrature-weighted, unassembled residuals; assembly across
 element boundaries is the separate `dssum`.

@@ -10,7 +10,7 @@ flow. Per chunk of steps:
      state, pressure and history included);
   4. the reduced operator Lr_ij = <u_i, L u_j> with the frozen-LNS apply_L.
 
-Counterpart of `neklab_tpu.otd`, with the same Ls.dat / Lr.dat spectra,
+Counterpart of `neklab_tpu/otd.py`, with the same Ls.dat / Lr.dat spectra,
 projected-mode field files and restart checkpoints, under the same names
 and cadences. The reference runs the r linearized steps under `jax.vmap`,
 so every mode's CGs keep their own scalars and their own stopping rule;

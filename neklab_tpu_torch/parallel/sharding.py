@@ -1,6 +1,6 @@
 """Element-partitioned runs over a torch.distributed process group.
 
-Counterpart of `neklab_tpu.parallel.sharding`. The reference's one scaling
+Counterpart of `neklab_tpu/parallel/sharding.py`. The reference's one scaling
 strategy is element decomposition (Nek5000's MPI): JAX shards every field
 along its element axis over one mesh axis 'e' and XLA's partitioner emits
 the collectives. Here each rank of a process group holds one contiguous

@@ -6,7 +6,7 @@ through the linearized propagator about the frozen iterate X (the
 reference's semantics), or with exact_jacobian=True the true Jacobian of
 the discrete map, by forward mode through the nonlinear integration; each
 has its exact discrete adjoint as rmatvec. Counterpart of
-`neklab_tpu.systems.fixed_point`.
+`neklab_tpu/systems/fixed_point.py`.
 
 The reference jits `advance` and `propagate` and jit's cache keeps one
 program per (dt, nsteps). Here the pieces that cost a build are kept

@@ -5,7 +5,7 @@ bordered Jacobian:
 
   J (dx, dT) = ( (dPhi_T/dX) dx - dx + (dPhi/dT) dT,  <dx, f(X)>_B )
 
-Counterpart of `neklab_tpu.systems.periodic_orbit`. Phi_T is `advance` over
+Counterpart of `neklab_tpu/systems/periodic_orbit.py`. Phi_T is `advance` over
 a fixed number of steps at dt = T / nsteps, so T moves the step. The
 reference takes (dPhi/dX) dx and dPhi/dT from one `jax.jvp` through the
 nonlinear integration with dt traced. Here dPhi/dT is forward mode through

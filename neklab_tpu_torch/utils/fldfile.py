@@ -19,7 +19,7 @@ Format (public Nek5000 "#std" layout, one file, single output group):
 
 Arrays here use the element-LAST layout f[..., (t,) s, r, nel]; `write_fld`
 also takes torch tensors on any device. Counterpart of
-`neklab_tpu.utils.fldfile` (the same format, byte for byte).
+`neklab_tpu/utils/fldfile.py` (the same format, byte for byte).
 """
 
 from __future__ import annotations

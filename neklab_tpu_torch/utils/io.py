@@ -1,6 +1,6 @@
 """Field I/O: checkpoint/restart and result outposting.
 
-Counterpart of `neklab_tpu.utils.io`, with its file names and npz keys, so
+Counterpart of `neklab_tpu/utils/io.py`, with its file names and npz keys, so
 each package reads the other's files: `<prefix><case>0.f<NNNNN>.npz` field
 files (the fields by name, `__time__`, `__x__` with a mesh), checkpoints
 of a state dataclass (one key per field, `x_<name>` for extras) and

@@ -1,6 +1,6 @@
 """`.par` runtime-parameter file reader (the Nek5000 INI schema).
 
-Counterpart of `neklab_tpu.utils.parfile`: parses a case file (sections
+Counterpart of `neklab_tpu/utils/parfile.py`: parses a case file (sections
 GENERAL / PROBLEMTYPE / PRESSURE / VELOCITY / TEMPERATURE, case-insensitive
 keys, `userParamXX` passed through) and maps it onto the port's
 `FlowConfig`, so a Nek5000 case runs from its own configuration file.

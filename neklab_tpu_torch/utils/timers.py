@@ -1,6 +1,6 @@
 """Hierarchical named-scope timers with an exit summary.
 
-Counterpart of `neklab_tpu.utils.timers` (LightKrylov's global timer around
+Counterpart of `neklab_tpu/utils/timers.py` (LightKrylov's global timer around
 every analysis driver, flushed to a log at the driver's exit). Use as:
 
     with timer("eigs"):

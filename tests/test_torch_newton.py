@@ -38,7 +38,7 @@ from neklab_tpu.ops import sem as jsem
 from neklab_tpu.systems.fixed_point import FixedPointSystem as JFixedPointSystem
 from neklab_tpu.vectors import flow_vector_space as jspace_of
 from neklab_tpu_torch import analysis
-from neklab_tpu_torch.krylov import gmres as kg
+from neklab_tpu_torch import krylov as kg
 from neklab_tpu_torch.krylov.linop import FunctionOperator, LinearOperator, NonlinearSystem
 from neklab_tpu_torch.krylov.newton import constant_tol, dynamic_tol, newton
 from neklab_tpu_torch.krylov.space import (VectorSpace, tree_add, tree_axpby, tree_sub,

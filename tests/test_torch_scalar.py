@@ -5,7 +5,8 @@ f_y = Pr Ra theta, the wall temperature 0.5 (1 + tanh(-20 y)) as the
 scalar's Dirichlet lift; Pr = 0.2, Ra = 510), cut from 400 to 20 spin-up
 steps and from tau = 0.3 to 0.05: the spin-up, then about the spun-up
 state the `FixedPointSystem` response and the frozen and exact
-Jacobians' matvec. Rayleigh-Benard (tests/test_rayleigh_benard.py:25-50
+Jacobians' matvec, and the propagator's matvec and rmatvec (the adjoint of
+the curved, coupled operator) with its B-adjoint identity. Rayleigh-Benard (tests/test_rayleigh_benard.py:25-50
 at Ra = 1900, kdim 30 -> 12, tau 0.05 -> 0.02): the leading eigenvalue of
 the conduction state from the reference's own start vector. Tolerance:
 1e-9 (absolute on fields of order one; on the eigenvalue).
@@ -133,3 +134,42 @@ def test_rayleigh_benard_leading_eigenvalue_matches_reference():
     lam, jlam = complex(res.eigvals[0]), complex(ref.eigvals[0])
     assert lam.real > 0  # supercritical: Ra = 1900 > Ra_c = 1707.76
     assert abs(lam - jlam) <= 1e-9, (lam, jlam)
+
+
+@pytest.fixture(scope="module")
+def thermosyphon_propagators(thermosyphon):
+    """The propagator of both packages about the reference's spun-up state
+    (tau = TAU, 10 steps), and a conforming (u, theta) direction."""
+    from neklab_tpu.ops import sem as jsem
+
+    jmesh, mesh, jcfg, cfg, jtb, tb, jst, st, du, dth = thermosyphon
+    jprop = JExpProp(jmesh, jcfg, jst.u, jst.theta, tau=TAU, dt=FLOW["dt"])
+    prop = ExponentialPropagator(mesh, cfg, t(jst.u), t(jst.theta), tau=TAU, dt=FLOW["dt"])
+    jx = {"u": jmesh.vmask * jsem.dsavg(jmesh, jnp.asarray(du)),
+          "theta": jmesh.tmask * jsem.dsavg(jmesh, jnp.asarray(dth))}
+    return jprop, prop, jx
+
+
+@pytest.mark.parametrize("which", ["matvec", "rmatvec"])
+def test_thermosyphon_propagator_matches_reference(thermosyphon_propagators, which):
+    """The coupled propagator about the spun-up thermosyphon and its exact
+    discrete adjoint (the buoyancy's transpose carries the velocity's
+    cotangent into the scalar's), port against reference: 1e-9."""
+    jprop, prop, jx = thermosyphon_propagators
+    ref = getattr(jprop, which)(jx)
+    out = getattr(prop, which)({k: t(v) for k, v in jx.items()})
+    assert float(np.abs(np.asarray(ref["theta"])).max()) > 1e-3
+    for k in ("u", "theta"):
+        assert absdiff(out[k], ref[k]) <= 1e-9, k
+
+
+def test_thermosyphon_adjoint_identity(thermosyphon_propagators):
+    """<M v, w>_B = <v, M* w>_B on the curved, thermally coupled operator
+    (tests/test_thermosyphon.py:80-86's check, scaled by |M v| |w|), on
+    conforming directions of the port's own draw: 1e-9."""
+    _, prop, _ = thermosyphon_propagators
+    space = flow_vector_space(prop.mesh, 1)
+    v, w = space.rand(3), space.rand(4)
+    mv = prop.matvec(v)
+    lhs, rhs = space.dot(mv, w), space.dot(v, prop.rmatvec(w))
+    assert abs(lhs - rhs) / (space.norm(mv) * space.norm(w)) < 1e-9, (lhs, rhs)

@@ -13,6 +13,9 @@ numpy-seeded inputs, and against the port in one process. Cases:
     reference's `advance`: 1e-10 in u and 1e-8 in p (its own bounds, with
     1e-10 solves); their state checkpoint and field file, written whole by
     rank 0 and split again on load;
+  * at P = 2, nscal = 1 (`torch_shard_workers.scalar_case`: 5 steps with a
+    theta-coupled force and source, `propagate` and its adjoint) against
+    one process;
   * one step's all-reduces: none moves a quarter of a velocity field, and
     a velocity CG iteration makes 4 (two `dssum`s, p.Ap, and (r.z, r.r)
     together), an unpreconditioned pressure iteration on the pure-Neumann
@@ -178,6 +181,18 @@ def test_shard_sem_mesh_raises_as_the_reference():
 # ---------------------------------------------------------------------------
 
 
+def scalar_inputs() -> dict:
+    """C0 fields of W.SCALAR_BOX that vanish where its masks do: the scalar
+    case's start (u0, th0) and its linearized direction (du, dth)."""
+    gm = box_mesh(**W.SCALAR_BOX, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(12)
+    shape = tuple(gm.bm1.shape)
+    field = lambda mask, n, scale: (scale * mask * sem.dsavg(gm, t(rng.standard_normal(
+        (n,) + shape)))).numpy()
+    return dict(u0=field(gm.vmask, 2, 0.1), th0=field(gm.tmask, 1, 0.1),
+                du=field(gm.vmask, 2, 1.0), dth=field(gm.tmask, 1, 1.0))
+
+
 @pytest.fixture(scope="module", params=[2, 4])
 def step_run(request, tmp_path_factory):
     jmesh = jstep_box()
@@ -186,8 +201,12 @@ def step_run(request, tmp_path_factory):
     y = np.asarray(jmesh.x[1])
     u0 = np.asarray(jmesh.vmask) * np.stack([1 - y**2, 0.1 * np.sin(np.asarray(jmesh.x[0]))])
     work = str(tmp_path_factory.mktemp("step"))
-    started = W.run_ranks("step", request.param, work, dict(cfg=STEP_CFG), dict(f=f, u0=u0),
-                          wait=False)
+    # at P = 2 the ranks also run the scalar case (nscal = 1)
+    scalar = request.param == 2
+    inputs = dict(f=f, u0=u0, **({"scalar_" + k: v for k, v in scalar_inputs().items()}
+                                 if scalar else {}))
+    started = W.run_ranks("step", request.param, work, dict(cfg=STEP_CFG, scalar=scalar),
+                          inputs, wait=False)
     cfg = jns.FlowConfig(**STEP_CFG)
     ref = jns.advance(jmesh, cfg, jns.initial_state(jmesh, cfg, u=jnp.asarray(u0)), 3)
     return dict(out=W.finish(started), f=f, u0=u0, ref_u=np.asarray(ref.u),
@@ -239,6 +258,20 @@ def test_split_step_collective_pattern(step_run):
     assert 4 * iv + 5 * ip < int(out["step_calls"]) <= 4 * iv + 5 * ip + 30
     for r in range(step_run["size"]):  # every rank made the same collectives
         assert int(out[f"rank{r}"]["log_calls"]) == int(out["rank0"]["log_calls"])
+
+
+@pytest.mark.parametrize("step_run", [2], indirect=True)
+def test_split_scalar_case_matches_one_process(step_run):
+    """nscal = 1 split over 2 ranks (`W.scalar_case`: 5 `advance` steps
+    with a theta-coupled force and source, then `propagate` and its
+    adjoint with the coupling linearized) against the same in one
+    process: rel 1e-10 (rounding through 1e-12 solves)."""
+    gm = box_mesh(**W.SCALAR_BOX, dtype=torch.float64, device="cpu")
+    one = W.scalar_case(gm, {k: t(v) for k, v in scalar_inputs().items()}, lambda f: f)
+    out = step_run["out"]
+    diffs = {k: rel(out["scalar_" + k], want) for k, want in one.items()}
+    assert all(float(want.abs().max()) > 1e-3 for want in one.values())
+    assert max(diffs.values()) <= 1e-10, diffs
 
 
 # ---------------------------------------------------------------------------

@@ -207,7 +207,9 @@ def test_step_matches_reference(flow_mesh, order, nscal):
     stats = {}
     got = ns.step(mesh, cfg, st, order, psolve, vsolve, tsolves, ub=t(ub), tb=t(tb), stats=stats)
     _compare(got, want, 1e-10)
-    assert sorted(stats) == ["helmholtz", "pressure"] and min(stats["helmholtz"]) > 0
+    # one velocity, one pressure and nscal scalar solves, each logged
+    assert sorted(stats) == ["helmholtz", "pressure"] + ["scalar"] * nscal
+    assert min(stats["helmholtz"]) > 0 and len(stats.get("scalar", [])) == nscal
     if name == "annulus":  # the lift reaches the solution
         inflow = (1 - mesh.vmask[0]) * (mesh.x[0] < -1.0)
         assert float((got.u[0] * inflow).max()) == pytest.approx(1.0)

@@ -41,6 +41,11 @@ FORCED_NU = 0.1
 FORCED_BOX = dict(nels=(4, 2), lims=((0.0, 2.0), (-1.0, 1.0)), bc=CHANNEL_BC, order=4)
 # tests/test_torch_otd.py's Poiseuille channel (12 elements)
 OTD_BOX = dict(nels=(3, 4), lims=((0.0, 2 * np.pi), (-1.0, 1.0)), bc=CHANNEL_BC, order=4)
+# STEP_BOX with the temperature fixed on both walls, and a scalar-coupled
+# flow on it: a buoyancy and a source, both of theta
+SCALAR_BOX = dict(STEP_BOX, bc_temp={"y-": "t", "y+": "t"})
+SCALAR_CFG = dict(viscosity=0.02, dt=5e-3, nscal=1, conductivity=(0.03,), vtol=1e-12,
+                  ptol=1e-12, ttol=1e-12)
 
 
 def body_force(mesh, t, u, theta):
@@ -48,6 +53,42 @@ def body_force(mesh, t, u, theta):
     f = torch.zeros((2,) + tuple(mesh.bm1.shape), dtype=mesh.dtype, device=mesh.device)
     f[0] = 2.0 * FORCED_NU
     return f
+
+
+def scalar_force(mesh, t, u, theta):
+    """Boussinesq buoyancy (0, 2 theta)."""
+    return torch.stack([torch.zeros_like(theta[0]), 2.0 * theta[0]])
+
+
+def scalar_source(mesh, t, u, theta):
+    """A source of theta and the vertical velocity."""
+    return (0.5 * u[1] + 0.1 * theta[0] ** 2)[None]
+
+
+def scalar_case(mesh, fields: dict, gather) -> dict:
+    """nscal = 1 on SCALAR_BOX: 5 `advance` steps with a theta-coupled force
+    and source from fields["u0"], fields["th0"] (the wall temperature
+    0.5 (1 - y) as the lift), then `propagate` (3 steps) about the result
+    with the same coupling linearized, and its exact adjoint, on
+    fields["du"], fields["dth"]. mesh: the whole mesh or a rank's block,
+    with fields on it; gather: what makes a field whole (the identity in
+    one process)."""
+    from neklab_tpu_torch.models import linearized as lin
+    from neklab_tpu_torch.models import navier_stokes as ns
+
+    cfg = ns.FlowConfig(**SCALAR_CFG, forcing_fn=scalar_force, source_fn=scalar_source)
+    tb = torch.stack([0.5 * (1 - mesh.x[1])])
+    st = ns.initial_state(mesh, cfg, u=fields["u0"], theta=tb + fields["th0"])
+    st = ns.advance(mesh, cfg, st, 5, tb=tb)
+    # the force and the source linearized about st
+    lin_source = lambda m, u, th: (0.5 * u[1] + 0.2 * st.theta[0] * th[0])[None]
+    lcfg = lin.LinConfig(flow=cfg, lin_forcing_fn=lambda m, u, th: scalar_force(m, 0, u, th),
+                         lin_source_fn=lin_source)
+    mu, mth = lin.propagate(mesh, lcfg, st.u, st.theta, fields["du"], fields["dth"], 3)
+    au, ath = lin.make_adjoint_propagator(mesh, lcfg, st.u, st.theta, 3)(fields["du"],
+                                                                         fields["dth"])
+    return {k: gather(v) for k, v in dict(u=st.u, p=st.p, theta=st.theta, mu=mu, mth=mth,
+                                           au=au, ath=ath).items()}
 
 
 def run_ranks(job: str, size: int, workdir: str, args: dict | None = None,
@@ -180,6 +221,11 @@ def job_step(part, args, z, dev):
     vcg, pcg = vsolves[1][0].cg, psolves[1].cg
     out["per_iter"] = np.asarray([_per_iteration(part, vcg, vcg.r.normal_()),
                                   _per_iteration(part, pcg, pcg.r.normal_())])
+    if args.get("scalar"):  # scalar_case on its inputs (scalar_u0, ...)
+        smesh = shard_sem_mesh(box_mesh(**SCALAR_BOX, dtype=torch.float64, device="cpu"), part)
+        fields = {k[7:]: shard_field(z[k], part) for k in z if k.startswith("scalar_")}
+        out.update({"scalar_" + k: v for k, v in
+                    scalar_case(smesh, fields, lambda f: gather_field(f, part)).items()})
     return out
 
 

@@ -1,8 +1,9 @@
 """Where the time of one step goes on a CUDA card, for the port
-(neklab_tpu_torch), f32.
+(neklab_tpu_torch), f32 (the thermosyphon cases f64).
 
     python3 tools/profile_torch_step.py [--cases re7500,box2d,re7500-adjoint,box2d-adjoint,
-                                                 cyl50-nonlinear,otd500-otd,box3d]
+                                                 cyl50-nonlinear,otd500-otd,box3d,
+                                                 thermosyphon-nonlinear,thermosyphon-linearized]
                                         [--nsteps 20] [--recycle 0,8]
 
 Cases: `re7500` is the Poiseuille Re=7500 `medium` propagator of
@@ -22,11 +23,19 @@ phase 11 (r = 2 modes on the frozen Poiseuille base at Re = 500, a 4 x 6
 box at order 6, dt from CFL 0.4, vtol = ptol = 3e-7): `otd_chunk` in
 chunks of 5 steps, as `otd_analysis` runs it at the reference's cadences,
 each chunk ending in an orthonormalization and Lr read on the host; its
-"step" advances both modes. For each, from a B-normalized state (the
+"step" advances both modes. `thermosyphon-nonlinear` and
+`thermosyphon-linearized` are chip_smoke.py phase 18's scalar-coupled
+steps (nscal = 1), f64: the heated `medium` annulus (80 elements at order
+6, Pr 0.2, Ra 510, dt 2.5e-3, the wall temperature as the scalar's lift),
+continuing from 400 spin-up steps: the Boussinesq step itself, and the
+linearized step of a (u, theta) perturbation about the spun-up state (its
+velocity, pressure and scalar solves; B-normalized per call). For each,
+from a B-normalized state (the
 sustained protocol; the nonlinear and OTD cases from their own states):
   * host ms/step of three unprofiled windows of `nsteps` steps;
-  * velocity (Helmholtz) and pressure (E) CG iterations per step, as the
-    solvers report them (`propagate(..., stats=)`, `advance(..., stats=)`);
+  * velocity (Helmholtz), pressure (E) and scalar CG iterations per step,
+    as the solvers report them (`propagate(..., stats=)`,
+    `advance(..., stats=)`);
   * helmholtz2d kernel runs per step, from the kernel's device counter
     (graph replays included);
   * one `torch.profiler` window: the host's launch calls per step
@@ -177,6 +186,51 @@ def otd_case(dev, nsteps):
     return mesh, fc.dt, run, run(state, ramp=True)
 
 
+def thermosyphon_case(dev, nsteps, kind, recycle=0):
+    """-> (mesh, dt, run, state) for chip_smoke.py phase 18's scalar-coupled
+    steps at its `medium` width, f64, after 400 spin-up steps: kind
+    "nonlinear" continues the Boussinesq flow at the scheme's order, kind
+    "linearized" propagates a (u, theta) perturbation about the spun-up
+    state (B-normalized after each call); solvers built once."""
+    import chip_smoke as cs
+    from neklab_tpu_torch.models import navier_stokes as ns
+    from neklab_tpu_torch.models.linearized import LinConfig, propagate
+    from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import sem
+
+    mesh = cs.thermosyphon_mesh(dev)
+    buoy = lambda m, u, th: torch.stack([torch.zeros_like(th[0]), cs.TS_PR * cs.TS_RA * th[0]])
+    fc = ns.FlowConfig(**cs.TS_FLOW, forcing_fn=lambda m, t, u, th: buoy(m, u, th))
+    cfg = LinConfig(flow=fc, lin_forcing_fn=buoy)
+    tb = torch.stack([0.5 * (1.0 + torch.tanh(-20.0 * mesh.x[1]))])
+    orders = ns.bdf_orders(fc, 3)
+    pc = build_e_preconditioner(mesh, fc.dt / (11 / 6))
+    vdiag, tdiags = ns.bdf3_diags(mesh, fc)
+    psolves = ns.pressure_solvers(mesh, fc, orders, pc)
+    vsolves = ns.velocity_solvers(mesh, fc, orders, vdiag, tdiags)
+    state = ns.advance(mesh, fc, ns.initial_state(mesh, fc, theta=tb), 400, tb=tb,
+                       psolves=psolves, vsolves=vsolves)
+    if kind == "nonlinear":
+        def run(st, stats=None):
+            return ns.advance(mesh, fc, st, nsteps, tb=tb, ramp=False, psolves=psolves,
+                              vsolves=vsolves, stats=stats, recycle=recycle)
+
+        return mesh, fc.dt, run, state
+
+    def run(x, stats=None):
+        u, th = propagate(mesh, cfg, state.u, state.theta, *x, nsteps, pc_e=pc, vdiag=vdiag,
+                          tdiags=tdiags, psolves=psolves, vsolves=vsolves, stats=stats,
+                          recycle=recycle)
+        nrm = (sem.mass_dot(mesh, u, u) + sem.mass_dot(mesh, th, th)).sqrt()
+        return u / nrm, th / nrm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rand = lambda n: sem.dsavg(mesh, torch.randn((n,) + tuple(mesh.bm1.shape), generator=gen,
+                                                 dtype=mesh.dtype, device=dev))
+    return mesh, fc.dt, run, (mesh.vmask * rand(2), mesh.tmask * rand(1))
+
+
 def profile_case(name, dev, nsteps, recycle=0):
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,7 +240,9 @@ def profile_case(name, dev, nsteps, recycle=0):
 
     base, _, kind = name.partition("-")
     tape_bytes = None
-    if kind == "nonlinear":
+    if base == "thermosyphon":
+        mesh, dt, run, u = thermosyphon_case(dev, nsteps, kind, recycle)
+    elif kind == "nonlinear":
         mesh, dt, run, u = nonlinear_case(dev, nsteps, recycle)
     elif kind == "otd":
         mesh, dt, run, u = otd_case(dev, nsteps)
