@@ -167,6 +167,14 @@ def phase(title: str, t0: float, **numbers) -> None:
           flush=True)
 
 
+def counts_only() -> dict:
+    """A `stats=` dict that takes the CG iteration counts alone, so that the
+    calls given it run untraced (no CUDA event, no timing entry)."""
+    from neklab_tpu_torch.utils.timers import Counts
+
+    return Counts()
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -245,7 +253,7 @@ def recycled_propagator(mesh, prop, u0, nsteps: int, tol: float, reps: int = 1) 
         state = {r: scale * bnorm(mu[r]) for r in mu}
         ms, iters = {r: [] for r in mu}, {r: [] for r in mu}
         for r in (0, RECYCLE, RECYCLE, 0):
-            stats = {}
+            stats = counts_only()
             n0 = hk.launches(mesh.device)  # synchronizes
             t1 = time.time()
             for _ in range(reps):
@@ -490,7 +498,7 @@ def parity_phase(dev):
     prop_c.adjoint  # builds the adjoint's solvers and records its tape
     out, runs, implied, stats = {}, {}, {}, {}
     for name, x, extra in (("matvec", uh, 1), ("rmatvec", vh, 0)):
-        stats[name] = {"card": {}, "cpu": {}}
+        stats[name] = {"card": counts_only(), "cpu": counts_only()}
         n0 = hk.launches(dev)
         out_c = getattr(prop_c, name)({"u": x.to(dev), "theta": th.to(dev)},
                                       stats=stats[name]["card"])["u"]
@@ -579,7 +587,7 @@ def nonlinear_phase(dev):
         orders = ns.bdf_orders(fc, nsteps)
         psolves = ns.pressure_solvers(mesh, fc, orders, build_e_preconditioner(mesh))
         vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
-        stats[d] = {}
+        stats[d] = counts_only()
         n0 = hk.launches(dev)
         out[d] = ns.advance(mesh, fc, ns.initial_state(mesh, fc, u=u0), nsteps, ub=ub,
                             psolves=psolves, vsolves=vsolves, stats=stats[d])
@@ -604,7 +612,7 @@ def nonlinear_phase(dev):
     exact = systems[dev][1]
     jac = exact.jacobian(x[dev])
     jacobian_nsteps = next(iter(exact.derived.values())).nsteps
-    ex_stats = {}
+    ex_stats = counts_only()
     n0 = hk.launches(dev)
     jv = jac.matvec(dx[dev], stats=ex_stats)["u"] + dx[dev]["u"]
     jv_runs = hk.launches(dev) - n0
@@ -697,7 +705,7 @@ def parity_r_phase(dev):
         kw = dict(vdiag=vdiag,
                   psolves=ns.pressure_solvers(m, fc, orders, build_e_preconditioner(m)),
                   vsolves=ns.velocity_solvers(m, fc, orders, vdiag, None))
-        st = stats[f"forced/{d}"] = {}
+        st = stats[f"forced/{d}"] = counts_only()
         n0 = hk.launches(dev)
         out[d] = propagate_forced(m, LinConfig(flow=fc), torch.stack([1 - y**2, 0 * y]), th,
                                   torch.zeros_like(f_re, device=d), th, f_re.to(d), f_im.to(d),
@@ -752,7 +760,7 @@ def parity_r_phase(dev):
         # linearized steps follow
         jac.phase_dir()
         jac._phi.orbit()
-        stats[f"period_dir/{d}"], stats[f"jacobian/{d}"] = {}, {}
+        stats[f"period_dir/{d}"], stats[f"jacobian/{d}"] = counts_only(), counts_only()
         n0 = hk.launches(dev)
         b = jac.period_dir(stats=stats[f"period_dir/{d}"])["u"]
         n1 = hk.launches(dev)
@@ -916,7 +924,7 @@ def box2d_phase(dev):
         """-> (s per call, kernel runs per step from the device counter,
         mean CG iterations per step {helmholtz, pressure}, last state)."""
         state = scale * bnorm(fn(state))  # warm-up
-        stats = {}
+        stats = counts_only()
         n0 = hk.launches(dev)  # synchronizes
         t1 = time.time()
         for _ in range(reps):
@@ -937,7 +945,7 @@ def box2d_phase(dev):
     assert bool(torch.isfinite(state).all()) and launches_per_step > 0
     s_floor, _, iters_floor, _ = timed(1e-8 * state, 1e-8)
     # the first step's CG counts from a fresh random field (BDF1, the ramp)
-    first = {}
+    first = counts_only()
     prop(fresh(), nst=1, stats=first)
 
     cfg_adj = LinConfig(flow=dataclasses.replace(fc, vtol=0.1 * fc.vtol, ptol=0.1 * fc.ptol))
@@ -1136,7 +1144,7 @@ def cylinder_phase(dev, dtype=torch.float32, nspin: int = 8000, kdim: int = 64,
 
     hk.reset_launches(dev)
     t1 = time.time()
-    spin_stats = {}
+    spin_stats = counts_only()
     st = advance(mesh, fc, st, nspin, ub=ub, pc_e=build_e_preconditioner(mesh), stats=spin_stats)
     runs["spin-up"] = hk.launches(dev)  # synchronizes
     seconds["spin-up"] = time.time() - t1
@@ -1343,7 +1351,7 @@ def rayleigh_phase(dev) -> int:
                         "s_per_matvec_median": statistics.median(op.seconds["matvec"]),
                         "seconds": res.elapsed, "kernel_runs": runs}
         assert res.residuals[0] < 1e-8, (ra, res.residuals)
-    stats = {}
+    stats = counts_only()
     hk.reset_launches(dev)
     prop.matvec(space.rand(5), stats=stats)
     one = hk.launches(dev)
@@ -1423,7 +1431,7 @@ def thermosyphon_phase(dev) -> dict:
     psolves = ns.pressure_solvers(mesh, fc, orders, build_e_preconditioner(mesh, TS_DT / (11 / 6)))
     vsolves = ns.velocity_solvers(mesh, fc, orders, *ns.bdf3_diags(mesh, fc))
     st = initial_state(mesh, fc, theta=tb)
-    spin = {}
+    spin = counts_only()
     hk.reset_launches(dev)
     t1 = time.time()
     st = advance(mesh, fc, st, TS_NSPIN, tb=tb, psolves=psolves, vsolves=vsolves, stats=spin)
@@ -1732,7 +1740,7 @@ def otd_phase(dev, endtime: float = 200.0) -> dict:
     for i, u in enumerate(reference_normal(7, (2, 2) + tuple(mesh.bm1.shape))):
         ics.append(os.path.join(outdir, f"OTDIC_{i + 1:02d}.npz"))
         np.savez(ics[-1], u=u)
-    stats = {}
+    stats = counts_only()
     t1 = time.time()
     try:
         res = otd_analysis(mesh, LinConfig(flow=fc), opts, initial_state(mesh, fc, u=base_u),
@@ -1893,7 +1901,7 @@ def parity_u_phase(dev):
                 vsolves = ns.velocity_solvers(m, fc, orders, vdiag, None)
                 adj = make_adjoint_propagator(m, cfg, base, th.to(d), nsteps, vdiag=vdiag,
                                               psolves=psolves, vsolves=vsolves)
-                st_mv, st_rmv = {}, {}
+                st_mv, st_rmv = counts_only(), counts_only()
                 n0 = hk.launches(dev)
                 mv = propagate(m, cfg, base, th.to(d), u0.to(d), th.to(d), nsteps, vdiag=vdiag,
                                psolves=psolves, vsolves=vsolves, stats=st_mv)[0]
@@ -1963,7 +1971,7 @@ def bfs_phase(dev, kdim: int = BFS_KDIM, nsv: int = BFS_NSV) -> dict:
     ub = bfs_inflow(mesh)
     hk.reset_launches(dev)
     t1 = time.time()
-    spin_stats = {}
+    spin_stats = counts_only()
     st = advance(mesh, fc, initial_state(mesh, fc, u=ub), nspin, ub=ub,
                  pc_e=build_e_preconditioner(mesh, dt / (11 / 6)), stats=spin_stats)
     runs["spin-up"] = hk.launches(dev)
@@ -2091,7 +2099,7 @@ def box21k_phase(dev) -> dict:
         run = lambda u, stats=None: propagate(mesh, cfg, base, th, u, th, nsteps, vdiag=vdiag,
                                               psolves=psolves, vsolves=vsolves, stats=stats)[0]
         state = scale * bnorm(run(state))  # warm-up
-        stats = {}
+        stats = counts_only()
         n0 = hk.launches(dev)
         t2 = time.time()
         for _ in range(reps):
@@ -2186,7 +2194,7 @@ def parity_3d_phase(dev):
     states, iters["advance"] = {}, {}
     for d in (dev, "cpu"):
         m = meshes[d]["channel"][0]
-        stats = {}
+        stats = counts_only()
         states[d] = ns.advance(m, fc, ns.initial_state(m, fc), 10,
                                pc_e=build_e_preconditioner(m, fc.dt / (11 / 6)), stats=stats)
         iters["advance"][str(d)] = {k: sum(v) for k, v in stats.items()}
@@ -2208,7 +2216,7 @@ def parity_3d_phase(dev):
             prop = ExponentialPropagator(m, lc, base, tau=0.2, dt=0.02, adjoint_tol_factor=1.0)
             assert prop.nsteps == 10 and prop.pc_e.eb_w is None
             assert prop.pc_e.blocks_inv is not None
-            st_mv, st_rmv = {}, {}
+            st_mv, st_rmv = counts_only(), counts_only()
             mv = prop.matvec({"u": u0.to(d), "theta": th.to(d)}, stats=st_mv)["u"]
             rmv = prop.rmatvec({"u": v0.to(d), "theta": th.to(d)}, stats=st_rmv)["u"]
             outs[d] = (mv, rmv)
@@ -2300,7 +2308,7 @@ def box3d_phase(dev):
     def timed(state, scale, fn=prop, reps=3):
         """-> (s per call, mean CG iterations per step, last state)."""
         state = scale * bnorm(fn(state))  # warm-up
-        stats = {}
+        stats = counts_only()
         torch.cuda.synchronize()
         t2 = time.time()
         for _ in range(reps):
@@ -2423,7 +2431,7 @@ def channel3d_phase(dev):
                                                   dtype=mesh.dtype, device=dev))
     recycled, mv = {}, {}
     for r in (0, RECYCLE):
-        stats = {}
+        stats = counts_only()
         torch.cuda.synchronize()
         t1 = time.time()
         mv[r] = propagate(mesh, prop.cfg, prop.base_u, th, u0, th, prop.nsteps, pc_e=prop.pc_e,
@@ -2554,7 +2562,7 @@ def rank_propagate(part, dev, case: str, work: str) -> dict:
     setup_s = time.time() - t1
     part.log.reset()
     hk.reset_launches(dev)
-    stats = {}
+    stats = counts_only()
     torch.cuda.synchronize(dev)
     t1 = time.time()
     mu, _ = propagate(mesh, cfg, base, th, u0, th, SHARDED_NSTEPS, pc_e=pc, stats=stats,
@@ -2669,7 +2677,7 @@ def rank_nccl(part, dev, work: str) -> dict:
         r = runs[order]
         part.log.reset()
         hk.reset_launches(dev)
-        stats = {}
+        stats = counts_only()
         torch.cuda.synchronize(dev)
         t1 = time.time()
         mu = r["prop"](r["u0"], s=stats)

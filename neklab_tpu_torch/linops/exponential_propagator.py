@@ -86,7 +86,8 @@ class ExponentialPropagator(LinearOperator):
         self.recycle = int(recycle)
 
     def matvec(self, x: dict, stats: dict | None = None) -> dict:
-        """stats: optional dict, filled as `propagate` fills it."""
+        """stats: optional dict, filled as `propagate` fills it (traced: the
+        solves' and the steps' timings too)."""
         u, theta = propagate(
             self.mesh, self.cfg, self.base_u, self.base_theta, x["u"], x["theta"], self.nsteps,
             pc_e=self.pc_e, vdiag=self.vdiag, tdiags=self.tdiags, psolves=self.psolves,
@@ -106,6 +107,6 @@ class ExponentialPropagator(LinearOperator):
 
     def rmatvec(self, x: dict, stats: dict | None = None) -> dict:
         """stats: optional dict, filled by the adjoint's transposed solves
-        (`AdjointPropagator.__call__`)."""
+        and, traced, with the call's timings (`AdjointPropagator.__call__`)."""
         u, theta = self.adjoint(x["u"], x["theta"], stats=stats)
         return {"u": u, "theta": theta}

@@ -36,6 +36,7 @@ import torch
 from ..mesh.core import SemMesh
 from ..ops import sem
 from ..parallel.sharding import global_sum
+from ..utils import timers
 from . import stokes
 from . import navier_stokes as ns
 from .navier_stokes import _BDF, _EXT
@@ -174,7 +175,8 @@ def step_lin(
     solvers (`navier_stokes.pressure_solvers`, `navier_stokes.velocity_solvers`).
     stats: optional dict; the velocity, pressure and scalar CG iteration
     counts are appended to stats["helmholtz"], stats["pressure"] and
-    stats["scalar"]. force, source: a
+    stats["scalar"], and, where the dict is traced (`timers.traced`), each
+    solve's `solvers.CGTiming` to stats["neklab.cg.<key>"]. force, source: a
     body force [ndim, ...] and scalar sources [nscal, ...] for this step
     (the reference's forcing hook: resolvent forcing, OTD rank coupling).
     emap: overrides the explicit operator (`adjoint_explicit_lin_map` for
@@ -249,7 +251,13 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     orders (`navier_stokes.pressure_solvers`, `velocity_solvers` with
     `bdf_orders(cfg.flow, nsteps)`). A caller that applies the map repeatedly
     builds them once (the diagonals serve the ramp steps too); they are
-    built here when None. stats: as in `step_lin`, one entry per step.
+    built here when None. stats: as in `step_lin`, one entry per step; a
+    traced call also appends to stats["neklab.step"], per step, the seconds
+    of the step on the card's stream (CUDA events around `step_lin`; the
+    host's clock on the CPU) less its solves' `CGTiming.span_s`: the
+    explicit terms, right-hand sides, pressure correction and lag shifts,
+    as the device saw them; while a profiler records, each step is the
+    range `neklab.step` instead.
 
     recycle: if > 0, each pressure solve after the BDF ramp is deflated
     against the last `recycle` solutions (Nek5000's residual projection;
@@ -270,15 +278,31 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
 
     n_ramp = min(fc.torder - 1, nsteps)
     pbasis = None
+    traced = timers.traced(stats)
+    clock = timers.Clock(mesh.device) if traced and not timers.profiling() else None
+    spans = []  # a timed call's (stamp before, stamp after, seconds of its solves) per step
     for k in range(nsteps):
         order = min(k + 1, tmax)
         vsolve, tsolves = vsolves[order]
         if recycle and k == n_ramp:
             pbasis = ns.init_projection_basis(mesh, recycle)
-        state = step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
-                         tsolves, conv_cache=ccache, stats=stats, pbasis=pbasis)
+        args = (mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve, tsolves)
+        if clock is not None:
+            marks = timers.solve_marks(stats)
+            before = clock.stamp()
+            state = step_lin(*args, conv_cache=ccache, stats=stats, pbasis=pbasis)
+            spans.append((before, clock.stamp(), timers.solve_seconds(stats, marks)))
+        elif traced:
+            with timers.profiler_range("neklab.step"):
+                state = step_lin(*args, conv_cache=ccache, stats=stats, pbasis=pbasis)
+        else:
+            state = step_lin(*args, conv_cache=ccache, stats=stats, pbasis=pbasis)
         if pbasis is not None:
             state, pbasis = state
+    if spans:
+        clock.wait(spans[-1][1])
+        stats.setdefault("neklab.step", []).extend(
+            clock.seconds(a, b) - solves for a, b, solves in spans)
     return state.u, state.theta
 
 
@@ -353,22 +377,53 @@ class AdjointPropagator:
     M^T is the backward of one recorded `propagate`: M is linear, so one
     tape serves every call (`retain_graph`), the counterpart of tracing and
     jitting the reference's transpose once. tape_bytes: device memory the
-    tape holds (None on the CPU)."""
+    tape holds (None on the CPU). log: the `timers.Counts` the recorded
+    solves report to; nsteps: the time steps recorded."""
 
-    def __init__(self, mesh: SemMesh, inputs, outputs, log: dict, tape_bytes):
+    def __init__(self, mesh: SemMesh, inputs, outputs, log: timers.Counts, tape_bytes,
+                 nsteps: int):
         self.mesh = mesh
         self._inputs, self._outputs, self._log = inputs, outputs, log
         self.tape_bytes = tape_bytes
+        self.nsteps = nsteps
+        self._clock: timers.Clock | None = None
 
     def __call__(self, v_u, v_theta, stats: dict | None = None):
         """stats: optional dict; every transposed solve appends its CG's
         iteration count, under the forward solver's key ("helmholtz",
         "pressure", "scalar"), in the order the backward runs them (last
-        step first)."""
-        self._log.clear()
-        out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
+        step first). A traced call (`timers.traced(stats)`) also appends
+        each transposed solve's `solvers.CGTiming` under
+        "neklab.cg.<key>", and to stats["neklab.adjoint"] the seconds of
+        the call on the card's stream (CUDA events around it; the host's
+        clock on the CPU) less its solves' spans, over the time steps: the
+        autograd engine and the tape's own kernels, per time step; while a
+        profiler records, the call is the range `neklab.adjoint` instead.
+        An untraced call records no event."""
+        log = self._log
+        log.clear()
+        log.traced = timers.traced(stats)
+        try:
+            if not log.traced:
+                out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
+            elif timers.profiling():
+                with timers.profiler_range("neklab.adjoint"):
+                    out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
+            else:
+                if self._clock is None:
+                    self._clock = timers.Clock(self.mesh.device)
+                clock = self._clock
+                clock.start()
+                before = clock.stamp()
+                out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
+                after = clock.stamp()
+                clock.wait(after)
+                other = clock.seconds(before, after) - timers.solve_seconds(log)
+                stats.setdefault("neklab.adjoint", []).append(other / self.nsteps)
+        finally:
+            log.traced = False
         if stats is not None:
-            for key, counts in self._log.items():
+            for key, counts in log.items():
                 stats.setdefault(key, []).extend(counts)
         return out
 
@@ -422,10 +477,10 @@ def make_adjoint_propagator(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, n
     if on_card:
         torch.cuda.synchronize(mesh.device)
         before = torch.cuda.memory_allocated(mesh.device)
-    log: dict = {}
+    log = timers.Counts()
     with torch.enable_grad():
         outputs = propagate(mesh, cfg, base_u, base_theta, *inputs, nsteps, pc_e=pc_e,
                             vdiag=vdiag, tdiags=tdiags, psolves=psolves, vsolves=vsolves,
                             stats=log)
     tape_bytes = torch.cuda.memory_allocated(mesh.device) - before if on_card else None
-    return AdjointPropagator(mesh, inputs, outputs, log, tape_bytes)
+    return AdjointPropagator(mesh, inputs, outputs, log, tape_bytes, nsteps)

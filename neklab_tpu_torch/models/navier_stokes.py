@@ -37,7 +37,7 @@ from ..ops.tensor import is_dual, linear, tangent_part
 from ..parallel.sharding import global_sum
 from ..utils.timestep import cfl_dt, clamp_cfl
 from . import stokes
-from .solvers import PCG, linear_solve, local_diagonal
+from .solvers import PCG, SolveLog, linear_solve, local_diagonal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +113,8 @@ _EXT = {
 
 
 def _logger(stats: dict | None, key: str):
-    """Appends a CG's iteration count to stats[key]; None without stats."""
-    if stats is None:
-        return None
-    return lambda k: stats.setdefault(key, []).append(k)
+    """A solve's `SolveLog` to stats under key; None without stats."""
+    return None if stats is None else SolveLog(stats, key)
 
 
 def helmholtz_diag(mesh: SemMesh, h1, h2, mask) -> torch.Tensor:
@@ -145,7 +143,9 @@ def make_helmholtz_solver(mesh: SemMesh, h1, h2, mask, diag, tol, maxiter, key="
     with it. stats: optional dict; each solve appends its CG's iteration
     count to stats[key] ("helmholtz"; the scalars' solvers log under
     "scalar"), and so does each backward of a solve recorded with that
-    dict. The solver's `PCG` is `solve.cg`.
+    dict; a traced dict (`timers.traced`) also gets each solve's
+    `solvers.CGTiming` under "neklab.cg.<key>". The solver's `PCG` is
+    `solve.cg`.
 
     x0: an optional guess of u (a C0 field, e.g. the extrapolated one),
     entered as the shift y = y0 + delta with op(delta) = b - op(y0), so the
@@ -335,7 +335,8 @@ def make_pressure_solver(mesh: SemMesh, cfg: FlowConfig, dt_over_g0, pc=None):
         reaches the solve through the right-hand side and the map stays
         linear. stats: optional dict; the CG's iteration count is appended
         to stats["pressure"] (and a recorded solve's backward appends its
-        own). dt_over_g0_now: dt/g0 again, as `step` computes it; when that
+        own), and, traced, its `solvers.CGTiming` to
+        stats["neklab.cg.pressure"]. dt_over_g0_now: dt/g0 again, as `step` computes it; when that
         carries a forward-mode tangent, so do E and the solve. E is linear
         in it, E(c) = (c / c0) E(c0), so the tangent of E x is
         E x' + (c'/c0) E x and that of E^-1 r is E^-1 r' - (c'/c0) E^-1 r:
@@ -484,7 +485,8 @@ def step(
     as a lift through each solve. stats: optional dict; the velocity,
     pressure and scalar CG iteration counts are appended to
     stats["helmholtz"], stats["pressure"] and stats["scalar"] (one entry
-    per scalar). dt: cfg.dt again as a 0-d tensor that carries a
+    per scalar), and a traced dict gets each solve's `solvers.CGTiming`
+    under "neklab.cg.<key>" too. dt: cfg.dt again as a 0-d tensor that carries a
     forward-mode tangent (the period of a periodic orbit, d/dT): every use
     of dt then carries it, the solves' operators included. pbasis: an
     optional recycling basis of the pressure solve (`init_projection_basis`),

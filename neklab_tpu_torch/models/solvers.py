@@ -21,16 +21,22 @@ forward mode its jvp does the same on the tangent (`jax.jvp` through
 `custom_linear_solve`), with the operator's own tangent when it depends on
 a scalar that carries one (dt). The iterations are re-solved, never
 differentiated.
+
+A solve whose `log` carries a traced `stats=` dict (`SolveLog`) is timed:
+`PCG.solve(timings=)` stamps the card's stream before and after each
+iteration's replay and after its final read, and appends one `CGTiming`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+import time
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..ops.tensor import linear
+from ..utils.timers import Clock, profiler_range, profiling, traced
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,6 +55,38 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
     if device not in _WARMUP_STREAMS:
         _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
     return _WARMUP_STREAMS[device]
+
+
+class CGTiming(NamedTuple):
+    """One traced solve as the card's stream saw it (CUDA events; the host's
+    clock on the CPU), in seconds."""
+
+    iters: int  # CG iterations
+    iter_s: float  # the iterations: each from the stamp before its launch to its end
+    gap_s: float  # between them: from the end of the set-up or of an iteration to the
+    # next one's stamp, i.e. the residual's copy, the host's wake-up and test
+    span_s: float  # the whole solve, from its set-up to its final read
+    read_s: float  # the host's time blocked in the residual reads
+
+
+class SolveLog:
+    """Where a solve reports to a `stats=` dict: `log(k)` appends its CG's
+    iteration count to stats[key], and `log(k, timing)` also its `CGTiming`
+    to stats["neklab.cg.<key>"]. `traced()` says whether the dict takes
+    timings (`timers.traced`); it is asked at each solve, so that a
+    backward recorded with the dict follows the call that runs it."""
+
+    def __init__(self, stats: dict, key: str):
+        self.stats, self.key = stats, key
+        self.name = "neklab.cg." + key
+
+    def __call__(self, k: int, timing: CGTiming | None = None) -> None:
+        self.stats.setdefault(self.key, []).append(k)
+        if timing is not None:
+            self.stats.setdefault(self.name, []).append(timing)
+
+    def traced(self) -> bool:
+        return traced(self.stats)
 
 
 class PCG:
@@ -82,6 +120,7 @@ class PCG:
         self.x, self.r, self.z, self.p = (torch.empty_like(like) for _ in range(4))
         self.rz, self.rr = (torch.empty((), dtype=like.dtype, device=like.device) for _ in range(2))
         self._step = self._iterate
+        self._clock: Clock | None = None  # the event pool, made at the first timed solve
         # a CUDA iteration is captured unless its all-reduces cannot be (gloo)
         self.graphed = like.is_cuda and (part is None or part.capturable)
         if self.graphed:
@@ -131,12 +170,8 @@ class PCG:
         self.rz.copy_(rz_new)
         self.rr.copy_(rr)
 
-    def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None, tol: float = 1e-8,
-              maxiter: int = 500):
-        """-> (x, iterations, final ||r||^2). Stops at ||r||_2 <= tol
-        (absolute, Euclidean), Nek's residual-based rule. A non-finite
-        residual (a non-finite right-hand side, or a breakdown) raises
-        instead of returning the iterate."""
+    def _begin(self, b: torch.Tensor, x0: torch.Tensor | None) -> None:
+        """The buffers at iteration 0: x, the residual, z, p, r.z and r.r."""
         if x0 is None:
             self.x.zero_()
             self.r.copy_(b)
@@ -150,6 +185,20 @@ class PCG:
         rz, rr = self._dots((self.r, self.z), (self.r, self.r))
         self.rz.copy_(rz)
         self.rr.copy_(rr)
+
+    def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None, tol: float = 1e-8,
+              maxiter: int = 500, timings: list | None = None):
+        """-> (x, iterations, final ||r||^2). Stops at ||r||_2 <= tol
+        (absolute, Euclidean), Nek's residual-based rule. A non-finite
+        residual (a non-finite right-hand side, or a breakdown) raises
+        instead of returning the iterate.
+
+        timings: a list to which the solve appends its `CGTiming` (a traced
+        solve; while a profiler records, it opens its ranges and appends
+        nothing); the iterates are the same bit for bit."""
+        if timings is not None:
+            return self._solve_traced(b, x0, tol, maxiter, timings)
+        self._begin(b, x0)
         k = 0
         while True:
             rr = float(self.rr)
@@ -159,6 +208,45 @@ class PCG:
                 return self.x.clone(), k, self.rr.clone()
             self._step()
             k += 1
+
+    def _solve_traced(self, b, x0, tol, maxiter, timings: list):
+        """`solve` with a stamp before the set-up, after it, before and after
+        each iteration and after the final read, which are read once that
+        last stamp has passed; while a profiler records, each residual read
+        is the range `neklab.cg.read` and the solve takes no stamp."""
+        clock = None
+        if not profiling():
+            if self._clock is None:
+                self._clock = Clock(self.x.device)
+            clock = self._clock
+            clock.start()
+        stamp = clock.stamp if clock is not None else (lambda: None)
+        first = stamp()
+        self._begin(b, x0)
+        marks = [stamp()]
+        read_s = 0.0
+        k = 0
+        while True:
+            with profiler_range("neklab.cg.read"):
+                t = time.perf_counter()
+                rr = float(self.rr)
+                read_s += time.perf_counter() - t
+            if not math.isfinite(rr):
+                raise FloatingPointError(f"CG: residual norm^2 {rr} after {k} iterations")
+            if k == maxiter or rr <= tol * tol:
+                break
+            marks.append(stamp())
+            self._step()
+            marks.append(stamp())
+            k += 1
+        if clock is None:
+            return self.x.clone(), k, self.rr.clone()
+        last = clock.stamp()
+        clock.wait(last)
+        iter_s = sum(clock.seconds(marks[i], marks[i + 1]) for i in range(1, 2 * k, 2))
+        gap_s = clock.seconds(marks[0], marks[-1]) - iter_s if k else 0.0
+        timings.append(CGTiming(k, iter_s, gap_s, clock.seconds(first, last), read_s))
+        return self.x.clone(), k, self.rr.clone()
 
 
 def pcg(
@@ -206,7 +294,10 @@ def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
     the cotangent before it solves. In forward mode the tangent is solved
     the same way (its right-hand side lies in the range as b does). log(k)
     receives each solve's iteration count, the backward's and the tangent's
-    too.
+    too. A `SolveLog` that reports to a traced dict (`timers.traced`, asked
+    at each solve, the backward's too) also receives each solve's
+    `CGTiming`; while a profiler records, the solve is the range
+    `neklab.cg.<key>` instead.
 
     param, dop: the operator's own tangent, for an operator built at a
     fixed value of a scalar s (h2 = rho g0 / dt): param carries s' as
@@ -215,6 +306,12 @@ def linear_solve(cg: PCG, b: torch.Tensor, tol: float, maxiter: int,
     `custom_linear_solve` gives it."""
 
     def solve(rhs):
+        if isinstance(log, SolveLog) and log.traced():
+            timings = []
+            with profiler_range(log.name):
+                x, k, _ = cg.solve(rhs, tol=tol, maxiter=maxiter, timings=timings)
+            log(k, *timings)
+            return x
         x, k, _ = cg.solve(rhs, tol=tol, maxiter=maxiter)
         if log is not None:
             log(k)

@@ -36,7 +36,7 @@ from neklab_tpu_torch.models import navier_stokes as ns
 from neklab_tpu_torch.models.navier_stokes import FlowConfig
 from neklab_tpu_torch.utils.orr_sommerfeld import orr_sommerfeld_spectrum, shear_mode_eigenvalues
 from neklab_tpu_torch.vectors import flow_vector, flow_vector_space, project_c0
-from torch_port_helpers import CHANNEL_BC, absdiff, t
+from torch_port_helpers import CHANNEL_BC, absdiff, cg_counts, t
 
 RE = 500.0
 MESH = dict(nels=(4, 5), lims=((0, 2 * np.pi), (-1, 1)), bc=CHANNEL_BC, order=6)
@@ -83,8 +83,9 @@ def test_propagate_reports_iterations_per_step(poiseuille):
     kw = dict(pc_e=prop.pc_e, vdiag=prop.vdiag, psolves=prop.psolves, vsolves=prop.vsolves)
     stats = {}
     out = lin.propagate(*args, stats=stats, **kw)[0]
-    assert sorted(stats) == ["helmholtz", "pressure"]
-    assert all(len(v) == 4 and min(v) > 0 for v in stats.values()), stats
+    iters = cg_counts(stats)
+    assert sorted(iters) == ["helmholtz", "pressure"]
+    assert all(len(v) == 4 and min(v) > 0 for v in iters.values()), iters
     assert torch.equal(out, lin.propagate(*args, **kw)[0])
 
 

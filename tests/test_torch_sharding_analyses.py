@@ -101,7 +101,7 @@ def runs(tmp_path_factory):
         args[size] = dict(lin_cfg=LIN_CFG, tg_tau=TG_TAU, tg=TG, resolvent=RESOLVENT,
                           proj_tau=PROJ_TAU, alpha=ALPHA, outdir=os.path.join(work, "out"))
         started[size] = W.run_ranks("analyses", size, work, args[size], inputs, wait=False,
-                                    timeout=400)
+                                    timeout=900)
 
     ref = {}
     jcfg = JLinConfig(flow=JFlowConfig(**LIN_CFG))

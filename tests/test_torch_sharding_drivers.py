@@ -111,7 +111,7 @@ def runs(tmp_path_factory):
         args[size] = dict(forced_cfg=FORCED_CFG, system=SYSTEM, newton=NEWTON,
                           recycle=RECYCLE, outdir=os.path.join(work, "out"))
         started[size] = W.run_ranks("drivers", size, work, args[size], inputs, wait=False,
-                                    timeout=400)
+                                    timeout=900)
 
     ref = {}
     jcfg = JLinConfig(flow=JFlowConfig(**FORCED_CFG, forcing_fn=_jforcing))

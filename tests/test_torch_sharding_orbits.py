@@ -103,7 +103,7 @@ def runs(tmp_path_factory):
                           otd_opts=OTD_OPTS, otd_nsteps=OTD_NSTEPS, otd_seed=OTD_SEED,
                           ic_paths=ic_paths, outdir=os.path.join(work, "out"))
         started[size] = W.run_ranks("orbits", size, work, args[size], inputs, wait=False,
-                                    timeout=400)
+                                    timeout=900)
 
     ref = {}
     jsys = JUPO(jmesh, JLinConfig(flow=JFlowConfig(**FORCED_CFG, forcing_fn=_jforcing)),

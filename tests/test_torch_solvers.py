@@ -30,7 +30,7 @@ from neklab_tpu_torch.models import stokes
 from neklab_tpu_torch.models.precond import build_e_preconditioner
 from neklab_tpu_torch.models.solvers import pcg_info
 from neklab_tpu_torch.ops import sem
-from torch_port_helpers import CHANNEL_BC, absdiff, carry_mesh, rel, t, to_np
+from torch_port_helpers import CHANNEL_BC, absdiff, carry_mesh, cg_counts, rel, t, to_np
 
 DT = 1e-2
 H1, H2 = 1.0 / 500, (11.0 / 6.0) / DT
@@ -122,7 +122,8 @@ def test_built_once_velocity_solver_matches_fresh_and_reference(channel, order):
                                    stats=fresh_stats)
         ref = jns.helmholtz_solve(jmesh, jnp.asarray(rhs), H1, h2, jmesh.vmask, jnp.asarray(bc),
                                   1e-11, 500, jdiag)
-        assert stats == fresh_stats and stats["helmholtz"][0] > 3, (stats, fresh_stats)
+        assert cg_counts(stats) == cg_counts(fresh_stats) and stats["helmholtz"][0] > 3, (
+            stats, fresh_stats)
         assert absdiff(out, fresh) <= 1e-9
         assert absdiff(out, ref) <= 1e-9
 

@@ -44,7 +44,7 @@ from neklab_tpu_torch.models import stokes
 from neklab_tpu_torch.models.precond import build_e_preconditioner
 from neklab_tpu_torch.ops import sem
 from neklab_tpu_torch.ops.tensor import interp_nd
-from torch_port_helpers import CHANNEL_BC, WALLED_BC, rel, t, to_np, wavy
+from torch_port_helpers import CHANNEL_BC, WALLED_BC, cg_counts, rel, t, to_np, wavy
 
 ANNULUS = dict(nel_r=3, nel_t=8, r_in=0.5, r_out=4.0, order=4, grading=1.3, outer_bc="vO",
                shift=0.2, bc_temp=("t", "I"))
@@ -208,7 +208,7 @@ def test_step_matches_reference(flow_mesh, order, nscal):
     got = ns.step(mesh, cfg, st, order, psolve, vsolve, tsolves, ub=t(ub), tb=t(tb), stats=stats)
     _compare(got, want, 1e-10)
     # one velocity, one pressure and nscal scalar solves, each logged
-    assert sorted(stats) == ["helmholtz", "pressure"] + ["scalar"] * nscal
+    assert sorted(cg_counts(stats)) == ["helmholtz", "pressure"] + ["scalar"] * nscal
     assert min(stats["helmholtz"]) > 0 and len(stats.get("scalar", [])) == nscal
     if name == "annulus":  # the lift reaches the solution
         inflow = (1 - mesh.vmask[0]) * (mesh.x[0] < -1.0)

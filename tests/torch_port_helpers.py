@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from neklab_tpu_torch.mesh.core import MESH_FIELDS, mesh_from_arrays
+from neklab_tpu_torch.utils.timers import counts as cg_counts  # noqa: F401  (the tests')
 
 # Tier-1 runs several pytest workers on a few cores; unbounded intra-op
 # threads in every worker would oversubscribe them.

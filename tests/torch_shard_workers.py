@@ -411,6 +411,7 @@ def _recycled(part, mesh, cfg, x, dx, base, pc, kw) -> dict:
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.models.linearized import LinConfig, propagate
     from neklab_tpu_torch.parallel import gather_field
+    from neklab_tpu_torch.utils.timers import counts
 
     fc = dataclasses.replace(cfg.flow, vtol=kw["tol"], ptol=kw["tol"])
     n, k = kw["nsteps"], kw["k"]
@@ -430,7 +431,7 @@ def _recycled(part, mesh, cfg, x, dx, base, pc, kw) -> dict:
                        psolves=psolves, vsolves=vsolves, stats=stats, recycle=r)[0]
         out[f"recycle{r}_propagate"] = gather_field(mu, part)
         calls[r] = part.log.calls
-        iters[r] = {key: sum(v) for key, v in stats.items()}
+        iters[r] = {key: sum(v) for key, v in counts(stats).items()}
     cg_diff = sum(per_iter[key] * (iters[k][key] - iters[0][key]) for key in per_iter)
     out["recycle_extra"] = np.asarray((calls[k] - calls[0] - cg_diff) / (n - (len(orders) - 1)))
     out["recycle_iters"] = np.asarray([iters[0]["pressure"], iters[k]["pressure"]])

@@ -54,6 +54,7 @@ def main():
     from neklab_tpu_torch.models.navier_stokes import advance, initial_state
     from neklab_tpu_torch.models.precond import build_e_preconditioner
     from neklab_tpu_torch.ops import sem
+    from neklab_tpu_torch.utils.timers import Counts
     from neklab_tpu_torch.vectors import flow_vector, flow_vector_space
 
     dev = torch.device(args.device)
@@ -63,7 +64,7 @@ def main():
     mesh, fc, ub, r, system = cylinder(torch.float32, dev, 3e-6)
     ramp = 1 - torch.exp(-3.0 * (r - 0.5))
     st = initial_state(mesh, fc, u=mesh.vmask * torch.stack([ramp, 0 * ramp]) + (1 - mesh.vmask) * ub)
-    stats = {}
+    stats = Counts()  # the counts alone: the spin-up runs untraced
     t0 = time.time()
     st = advance(mesh, fc, st, args.nspin, ub=ub, pc_e=build_e_preconditioner(mesh), stats=stats)
     sync()
