@@ -37,6 +37,11 @@ Phases:
              and RCB library beside it
   2 kernel   helmholtz2d vs helmholtz2d_plain at every later phase's shapes
              and the tiling's edges; device times beside the bound
+  2e e3d     the 3-D pressure operator's kernel pair (e_kernel.e3d) vs
+             stokes.e_op_plain at phases 3d, 14, 15 and 16's 3-D shapes and
+             the benchmark's, with the probes' leading axis, at every order
+             it is built for and past a grid axis's 65,535 entries; device
+             times beside the plain chain's and the bound, A and B apart
   3 parity   matvec and rmatvec on the card (kernel, graphed CGs, the
              adjoint's recorded tape) vs on the CPU (plain), f64; the
              B-adjoint identity on the card; the kernel's device counter vs
@@ -56,7 +61,8 @@ Phases:
              walled (3, 2, 2) box at order 4: `helmholtz_local`, 10 forced
              nonlinear steps, `propagate` and its adjoint with block
              Jacobi + constants through the matrix-free E, the B-adjoint
-             identity; the 2-D kernel's counter does not move
+             identity; the 2-D kernel's counter does not move, the E pair's
+             covers the card's pressure iterations
   4 oracle   Poiseuille Re=500 direct and adjoint eigenvalues vs
              Orr-Sommerfeld, f64; the projected alpha = 1 eigensolve
   5 box2d    box2d 131k propagator, f32: ms/step sustained and floor, and
@@ -90,12 +96,12 @@ Phases:
              sustained and floor, the adjoint's ms/step and tape bytes, CG
              iterations, the preconditioner's and the Jacobi diagonal's
              build, peak memory; the CGs inside maxit, the B-adjoint identity;
-             (b) recycle 0 and 8 as in (a)
+             (b) recycle 0 and 8 as in (a); the E pair's runs
   15 channel3d  plane Poiseuille at Re = 500 extruded spanwise, (4, 5, 2) at
              order 6, f64: the two leading eigenvalues vs the analytic
              shear modes -nu (pi/2)^2 (double, reported once) and -nu pi^2,
              the driver's files; (c) one matvec with recycle 0 and 8: s per
-             matvec, pressure iterations per step
+             matvec, pressure iterations per step; the E pair's runs
   16 sharded element-partitioned runs on the one card (this script with
              `--rank JOB RANK SIZE DIR` is one rank): one NCCL rank, box2d
              131k f32, 20 steps with graphed CGs vs unsplit, and (d) the
@@ -120,7 +126,7 @@ Phases:
              nev 2), sigma_1 and sigma_2 vs the reference's recorded values,
              the discrete-adjoint identity
 
-After phases 0-2 and 5, which time the card alone, the main process starts
+After phases 0-2e and 5, which time the card alone, the main process starts
 one process per group of SIDE (this script with `--side oracle,resolvent`,
 ...) and runs MAIN_THEN beside them, the card-vs-CPU phases 3-3d first:
 most solves are bound by the host's launch rate, one core each, and leave
@@ -137,9 +143,10 @@ first visible card visible to itself. Every phase asserts; any failure raises an
 non-zero. The last line on success is {"ok": true, "device": {...}}; the line
 before it lists the kernels. Without a CUDA card it fails at once.
 
-The kernel counts its own runs in device memory (`helmholtz_kernel.launches`),
-so the velocity and pressure CGs, whose iterations replay CUDA graphs, are
-counted too.
+The kernels count their own runs in device memory
+(`helmholtz_kernel.launches`, `e_kernel.launches`), so the velocity and
+pressure CGs, whose iterations replay CUDA graphs, are counted too; the
+`kernels` line gives each one's runs by path.
 """
 
 from __future__ import annotations
@@ -276,6 +283,17 @@ def wavy(x):
     x = np.array(x)
     x[1] = x[1] + 0.1 * np.sin(np.pi * x[0]) * (1 - x[1] ** 2)
     x[0] = x[0] + 0.05 * np.sin(np.pi * x[1])
+    return x
+
+
+def wavy3(x):
+    """A smooth deformation of the box [0, 2] x [-1, 1]^2 that makes every
+    rx factor nonzero."""
+    x = np.array(x)
+    x0, x1, x2 = x[0].copy(), x[1].copy(), x[2].copy()
+    x[0] = x0 + 0.05 * np.sin(np.pi * x1) * np.cos(0.5 * np.pi * x2)
+    x[1] = x1 + 0.1 * np.sin(np.pi * x0) * (1 - x1**2) + 0.03 * x2
+    x[2] = x2 + 0.08 * np.sin(np.pi * x0 + 0.5) * (1 - x2**2) + 0.04 * x1
     return x
 
 
@@ -466,6 +484,147 @@ def kernel_phase(dev):
             "by_shape": {k: {"ms": statistics.median(v["kernel_device_ms"]),
                              "plain_ms": statistics.median(v["plain_device_ms"]),
                              "bound_ms": v["bound_ms"]} for k, v in times.items()}}
+
+
+def e3d_counts(n: int, nel: int, batch: int, word: int, table: int) -> tuple[float, float]:
+    """(flops, bytes) of one apply of the 3-D E pair on `batch` fields:
+    kernel A reads p, bm2 and rx and writes g (3 n^3 an element and field);
+    kernel B gathers g, reads the plan (int32 code and table), Binv, rx and
+    bm2 and writes the output. The geometry is read once an apply (rx
+    twice), the fields' parts once per entry."""
+    m = n - 2
+    mult_adds = 18 * n**4 + 2 * (m**3 * n + m**2 * n**2 + m * n**3) + 9 * n**3
+    mults = 18 * n**3 + 2 * m**3
+    flops = (2 * mult_adds + mults) * nel * batch
+    words = ((18 + 1 + 6 * batch) * n**3 + (2 + 2 * batch) * m**3) * nel
+    return flops, word * words + 4 * (n**3 * nel + table)
+
+
+def e3d_bound_ms(mesh, batch: int) -> tuple[float, str]:
+    """Least device time of one E apply through the pair on `mesh` and what
+    sets it: `e3d_counts` over 3.35 TB/s against 34 (f64) or 67 (f32)
+    TFLOP/s."""
+    from neklab_tpu_torch.ops import e_kernel as ek
+
+    word = torch.finfo(mesh.dtype).bits // 8
+    flops, nbytes = e3d_counts(mesh.basis.n, mesh.nel, batch, word,
+                               ek.plan(mesh).table.numel())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FLOPS_PER_S[mesh.dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def e3d_split_us(fn, calls: int = 20) -> dict:
+    """Device microseconds per apply of each kernel of the pair, from a
+    profile of `calls` applies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "e3d" in e.name:
+            key = "A" if "grad_t" in e.name else "B"
+            by[key] = by.get(key, 0.0) + (e.time_range.end - e.time_range.start) / calls
+    return by
+
+
+def bench_mesh(config: str, dev, dtype=torch.float64):
+    """The mesh of a benchmark configuration (benchmark/configs/)."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+
+    with open(os.path.join(ROOT, "benchmark", "configs", config + ".json")) as f:
+        spec = json.load(f)["mesh"]
+    return box_mesh(tuple(spec["nels"]), spec["lims"], spec["bc"], order=spec["order"],
+                    dtype=dtype, device=dev)
+
+
+def e3d_phase(dev):
+    """Phase 2e: the 3-D pressure operator's kernel pair (`e_kernel.e3d`,
+    through `stokes.e_op`) against its plain twin (`stokes.e_op_plain`) on
+    the same CUDA inputs, at every later 3-D phase's shapes: phase 3d's two
+    f64 meshes at order 4, phase 14's box3d in f32, phase 15's channel at
+    order 6, each with one field and with the preconditioner's probe axis
+    (one entry per pressure point of an element), the benchmark's two
+    configurations (order 7 with 720 elements, order 5 with 1,728: phase
+    16's one-process box3d in f64 too), a deformed box (every rx factor) at
+    every order the pair is built for in f32 and f64, and 70,000 entries,
+    more than a grid's second axis holds. f64 to 1e-13 and f32 to 1e-5
+    relative, and one run of the pair an apply (its device counter). Times
+    the pair against the plain chain at the benchmark's shapes, box3d's and
+    the channel's, beside `e3d_bound_ms`, and splits it between its two
+    kernels."""
+    from neklab_tpu_torch.mesh.box import box_mesh
+    from neklab_tpu_torch.models import stokes
+    from neklab_tpu_torch.models.precond import _PROBE_BYTES
+    from neklab_tpu_torch.ops import e_kernel as ek
+
+    t0 = time.time()
+    c = 0.37  # a dt/g0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def field(m, lead=()):
+        return torch.randn(lead + tuple(m.bm2.shape), generator=gen, dtype=m.dtype, device=dev)
+
+    def probe(m):
+        """The leading axis of the diagonal blocks' probe (precond.py)."""
+        np2 = int(np.prod(m.bm2.shape[:-1]))
+        return (max(1, min(np2, int(_PROBE_BYTES / (np2 * m.nel * 4)))),)
+
+    meshes = {f"parity_3d/{k}": v[0] for k, v in small_3d(dev).items()}
+    meshes["box3d/f32"] = box3d_mesh(dev)
+    meshes["channel3d"] = box_mesh((4, 5, 2), ((0.0, 2 * np.pi), (-1.0, 1.0), (0.0, 2.0)),
+                                   CHANNEL3, order=6, dtype=torch.float64, device=dev)
+    for config in ("channel3d-re7500", "duct3d-re1000"):
+        meshes[config] = bench_mesh(config, dev)
+    cases = [(key, m, lead) for key, m in meshes.items() for lead in ((), probe(m))]
+    deformed = {(n, dtype): box_mesh((3, 3, 1), ((0.0, 2.0), (-1.0, 1.0), (-1.0, 1.0)), WALLED3,
+                                     order=n - 1, deform=wavy3, dtype=dtype, device=dev)
+                for n in ek.NS for dtype in (torch.float64, torch.float32)}
+    cases += [(f"deformed/n{n}/{SHORT[dtype]}", m, ()) for (n, dtype), m in deformed.items()]
+    cases.append(("deformed/n4/f32", deformed[4, torch.float32], (70000,)))
+
+    errs, max_abs = {}, 0.0
+    for key, m, lead in cases:
+        dp = field(m, lead)
+        ek.reset_launches(dev)
+        out = stokes.e_op(m, dp, c)
+        runs = ek.launches(dev)  # synchronizes
+        ref = stokes.e_op_plain(m, dp, c)
+        errs[f"{key}/{list(lead)}"] = err = rel(out, ref)
+        max_abs = max(max_abs, float((out - ref).abs().max()))
+        assert runs == 1, (key, runs)
+        assert err <= (1e-13 if m.dtype == torch.float64 else 1e-5), (key, lead, err)
+        del dp, out, ref
+
+    times = {}
+    for key in ("channel3d-re7500", "duct3d-re1000", "box3d/f32", "channel3d"):
+        m = meshes[key]
+        dp = field(m)
+        kern, plain = [], []
+        # 30 calls: the plain chain's ~25 launches a call must all be queued
+        # inside device_ms's sleep, or the host's launch rate sets its time
+        for _ in range(2):  # in turns: plain, kernel, kernel, plain, ...
+            plain.append(device_ms(lambda: stokes.e_op_plain(m, dp, c), 30))
+            kern.append(device_ms(lambda: stokes.e_op(m, dp, c), 30))
+            kern.append(device_ms(lambda: stokes.e_op(m, dp, c), 30))
+            plain.append(device_ms(lambda: stokes.e_op_plain(m, dp, c), 30))
+        bound, by = e3d_bound_ms(m, 1)
+        med = statistics.median(kern)
+        times[f"{key} {list(dp.shape)} {SHORT[m.dtype]}"] = {
+            "kernel_device_ms": kern, "plain_device_ms": plain, "bound_ms": bound,
+            "bound_by": by, "share_of_bound": bound / med,
+            "split_us": e3d_split_us(lambda: stokes.e_op(m, dp, c))}
+    phase("e3d", t0, rel_err=errs, max_abs_err=max_abs, times=times,
+          library="none: no single PyTorch call computes the fused apply")
+    return {"max_abs_err": max_abs,
+            "by_shape": {k: {"ms": statistics.median(v["kernel_device_ms"]),
+                             "plain_ms": statistics.median(v["plain_device_ms"]),
+                             "bound_ms": v["bound_ms"], "split_us": v["split_us"]}
+                         for k, v in times.items()}}
 
 
 def parity_phase(dev):
@@ -2162,17 +2321,21 @@ def parity_3d_phase(dev):
     block Jacobi + constants through the matrix-free E; the B-adjoint
     identity on the card. The solves run to 1e-14 (phase 3u: at 1e-12 the
     card's and the CPU's slow E-CGs stop a few iterations apart). Asserts
-    <= 1e-12 relative, and that the 3-D path never ran the 2-D kernel (its
-    device counter does not move)."""
+    <= 1e-12 relative, that the 3-D path never ran the 2-D kernel (its
+    device counter does not move), and that the card's E applies all ran
+    the 3-D pair (its counter, zeroed at the start, at least the card's
+    pressure iterations). Returns the pair's runs."""
     from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.models.linearized import LinConfig
     from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import e_kernel as ek
     from neklab_tpu_torch.ops import helmholtz_kernel as hk
     from neklab_tpu_torch.ops import sem
 
     t0 = time.time()
     runs0 = hk.launches(dev)
+    ek.reset_launches(dev)
     meshes = {d: small_3d(d) for d in (dev, "cpu")}
     rng = np.random.default_rng(31)
     errs, iters = {}, {}
@@ -2229,13 +2392,21 @@ def parity_3d_phase(dev):
         rhs = float(sem.mass_dot(m, u0.to(dev), outs[dev][1]))
         identity[name] = abs(lhs - rhs) / abs(lhs)
     runs = hk.launches(dev) - runs0
+    e3d_runs = ek.launches(dev)
+    card = [iters["advance"][str(dev)]] + [iters[f"{name}/{dev}"][call]
+                                           for name in meshes["cpu"]
+                                           for call in ("matvec", "rmatvec")]
+    card_piters = sum(d.get("pressure", 0) for d in card)
     phase("parity_3d", t0, rel_err=errs, b_adjoint_identity_rel=identity, cg_iters=iters,
-          helmholtz2d_runs=runs, nel={k: v[0].nel for k, v in meshes["cpu"].items()})
+          helmholtz2d_runs=runs, e3d_runs=e3d_runs, card_pressure_iters=card_piters,
+          nel={k: v[0].nel for k, v in meshes["cpu"].items()})
     assert runs == 0, runs
+    assert e3d_runs >= card_piters > 0, (e3d_runs, card_piters)
     for key, value in errs.items():
         assert value <= 1e-12, (key, value)
     for key, value in identity.items():
         assert value <= 1e-10, (key, value)
+    return e3d_runs
 
 
 def box3d_mesh(dev, dtype=torch.float32):
@@ -2263,13 +2434,17 @@ def box3d_phase(dev):
     memory. Asserts every output finite, every CG converged inside its
     maxit, and <M u, v>_B = <u, M* v>_B to 1e-3 (f32 solves at 1e-5).
     (b): the same propagator with recycle 0 and RECYCLE
-    (`recycled_propagator`)."""
+    (`recycled_propagator`). Returns the 3-D E pair's runs (its counter,
+    zeroed at the start), asserted at least the timed calls' pressure
+    iterations."""
     from neklab_tpu_torch.models import navier_stokes as ns
     from neklab_tpu_torch.models.linearized import LinConfig, make_adjoint_propagator, propagate
     from neklab_tpu_torch.models.precond import build_e_preconditioner
+    from neklab_tpu_torch.ops import e_kernel as ek
     from neklab_tpu_torch.ops import sem
 
     t0 = time.time()
+    ek.reset_launches(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     mesh = box3d_mesh(dev)
     fc = ns.FlowConfig(viscosity=1e-3, dt=2e-3, vtol=1e-5, ptol=1e-5, vmaxit=60, pmaxit=150)
@@ -2350,7 +2525,9 @@ def box3d_phase(dev):
     lhs, rhs = float(sem.mass_dot(mesh, mu, v0)), float(sem.mass_dot(mesh, u0, mtv))
     identity = abs(lhs - rhs) / abs(lhs)
     peak = torch.cuda.max_memory_allocated(dev)
-    phase("box3d", t0, nel=mesh.nel, order=mesh.basis.n - 1, dof=dof, nsteps=nsteps,
+    e3d_runs = ek.launches(dev)
+    phase("box3d", t0, e3d_runs=e3d_runs, timed_pressure_iters=sum(every["pressure"]),
+          nel=mesh.nel, order=mesh.basis.n - 1, dof=dof, nsteps=nsteps,
           ms_per_step=1e3 * s_sus / nsteps, ms_per_step_floor=1e3 * s_floor / nsteps,
           dof_steps_per_s=dof * nsteps / s_sus, cg_iters_per_step=iters_sus,
           cg_iters_per_step_floor=iters_floor, adjoint_ms_per_step=1e3 * s_adj / nsteps,
@@ -2361,6 +2538,8 @@ def box3d_phase(dev):
           recycled=recycled)
     assert max(every["helmholtz"]) < fc.vmaxit and max(every["pressure"]) < fc.pmaxit, every
     assert identity <= 1e-3, (lhs, rhs)
+    assert e3d_runs >= sum(every["pressure"]) > 0, (e3d_runs, sum(every["pressure"]))
+    return e3d_runs
 
 
 # the Krylov dimension and residual tolerance of phase 15: the two leading
@@ -2399,13 +2578,17 @@ def channel3d_phase(dev):
     tol. Then (c): one matvec of the same propagator built at vtol = ptol
     = CHANNEL3D_RECYCLE_TOL, with recycle 0 and RECYCLE, from one C0 field
     of the seed: seconds per matvec, pressure iterations per step, the two
-    outputs' difference under 1e3 ptol."""
+    outputs' difference under 1e3 ptol. Returns the 3-D E pair's runs (its
+    counter, zeroed at the start), asserted at least (c)'s pressure
+    iterations."""
     from neklab_tpu_torch import (ExponentialPropagator, FlowConfig, LinConfig, box_mesh,
                                   flow_vector_space, linear_stability_analysis_fixed_point)
     from neklab_tpu_torch.models.linearized import propagate
+    from neklab_tpu_torch.ops import e_kernel as ek
     from neklab_tpu_torch.ops import sem
 
     t0 = time.time()
+    ek.reset_launches(dev)
     mesh = box_mesh((4, 5, 2), ((0.0, 2 * np.pi), (-1.0, 1.0), (0.0, 2.0)), CHANNEL3, order=6,
                     dtype=torch.float64, device=dev)
     y = mesh.x[1]
@@ -2429,7 +2612,7 @@ def channel3d_phase(dev):
     gen.manual_seed(15)
     u0 = mesh.vmask * sem.dsavg(mesh, torch.randn((3,) + tuple(mesh.bm1.shape), generator=gen,
                                                   dtype=mesh.dtype, device=dev))
-    recycled, mv = {}, {}
+    recycled, mv, piters = {}, {}, 0
     for r in (0, RECYCLE):
         stats = counts_only()
         torch.cuda.synchronize()
@@ -2441,13 +2624,15 @@ def channel3d_phase(dev):
         recycled[f"s_per_matvec_recycle{r}"] = time.time() - t1
         recycled[f"pressure_iters_per_step_recycle{r}"] = statistics.mean(stats["pressure"])
         recycled[f"pressure_iters_post_ramp_recycle{r}"] = statistics.mean(stats["pressure"][2:])
+        piters += sum(stats["pressure"])
     recycled["rel_diff"] = rel(mv[RECYCLE], mv[0])
     recycled["rel_diff_bound"] = 1e3 * CHANNEL3D_RECYCLE_TOL
     lam1, lam3 = -(1 / re) * np.pi**2 * np.array([0.25, 1.0])
     dist = np.array([abs(res.eigvals[0] - lam1),
                      min(abs(res.eigvals[1] - lam1), abs(res.eigvals[1] - lam3))])
     files = sorted(os.listdir(outdir))
-    phase("channel3d", t0, nel=mesh.nel, dt=prop.dt, nsteps=prop.nsteps,
+    e3d_runs = ek.launches(dev)
+    phase("channel3d", t0, e3d_runs=e3d_runs, nel=mesh.nel, dt=prop.dt, nsteps=prop.nsteps,
           eigvals=[[v.real, v.imag] for v in res.eigvals], oracle=[lam1, lam3],
           dist=dist.tolist(), residuals=res.residuals.tolist(), n_matvec=res.n_matvec,
           seconds=res.elapsed, s_per_matvec=res.elapsed / res.n_matvec, files=files,
@@ -2457,6 +2642,8 @@ def channel3d_phase(dev):
     assert np.all(dist <= 1e-5), dist
     assert np.all(res.residuals < CHANNEL3D_TOL), res.residuals
     assert recycled["rel_diff"] <= recycled["rel_diff_bound"], recycled
+    assert e3d_runs >= piters > 0, (e3d_runs, piters)
+    return e3d_runs
 
 
 # ---------------------------------------------------------------------------
@@ -3194,7 +3381,7 @@ def eigs_depth(dev, case: str, settings: list[str]) -> None:
 # (PERF.md section 6). The groups are packed to end together (phase 10
 # alone is the longest); phase 16e follows phase 8 in its process, from
 # phase 8's spun-up state
-MAIN_FIRST = ("kernel", "box2d")
+MAIN_FIRST = ("kernel", "e3d", "box2d")
 # phase 7 runs in the group that ends first, on phase 6's mu_1 from the
 # main process (MU1_FILE): the main process's chain, phase 15 last, ended
 # the script (PERF.md section 6, PR 10)
@@ -3254,11 +3441,19 @@ def one_blas_thread() -> dict:
     return dict(os.environ, OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1", OMP_NUM_THREADS="1")
 
 
+# the phases that count the 3-D E pair's runs (state["e3d_runs"]), by path
+E3D_PATHS = {"parity_3d": "3-D card vs CPU (phase 3d)", "box3d": "box3d duct, f32 (phase 14)",
+             "channel3d": "3-D channel eigensolve (phase 15)"}
+
+
 def run_phase(name: str, dev, state: dict):
-    """Runs one named phase; returns the kernel runs of its paths (a dict)
-    or None. state carries phase 6's mu_1 to phase 7."""
+    """Runs one named phase; returns the helmholtz2d runs of its paths (a
+    dict) or None. state carries phase 6's mu_1 to phase 7, and the 3-D
+    phases' E pair runs (`E3D_PATHS`)."""
     if name == "kernel":
         state["kernel"] = kernel_phase(dev)
+    elif name == "e3d":
+        state["e3d"] = e3d_phase(dev)
     elif name == "parity":
         parity_phase(dev)
     elif name == "nonlinear":
@@ -3301,12 +3496,10 @@ def run_phase(name: str, dev, state: dict):
                 "BFS transient growth (phase 12)": runs["analysis"]}
     elif name == "box21k":
         return box21k_phase(dev)
-    elif name == "parity_3d":
-        parity_3d_phase(dev)
-    elif name == "box3d":
-        box3d_phase(dev)
-    elif name == "channel3d":
-        channel3d_phase(dev)
+    elif name in E3D_PATHS:
+        runs = {"parity_3d": parity_3d_phase, "box3d": box3d_phase,
+                "channel3d": channel3d_phase}[name](dev)
+        state.setdefault("e3d_runs", {})[E3D_PATHS[name]] = runs
     elif name == "sharded":
         return sharded_phase(dev)
     elif name == "cylinder_split":
@@ -3357,6 +3550,7 @@ def main() -> None:
             runs.update(run_phase(name, dev, state) or {})
             print(f"ended {name} {time.time():.3f}", flush=True)  # for the main's timeline
         print("launches " + json.dumps(runs), flush=True)
+        print("e3d_launches " + json.dumps(state.get("e3d_runs", {})), flush=True)
         if "adjoint_launches" in state:
             print(f"adjoint_launches {state['adjoint_launches']}", flush=True)
         return
@@ -3367,6 +3561,7 @@ def main() -> None:
         state: dict = {}
         for name in args[1].split(","):
             print(f"launches {name} " + json.dumps(run_phase(name, dev, state)), flush=True)
+        print("e3d_launches " + json.dumps(state.get("e3d_runs", {})), flush=True)
         print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
         return
 
@@ -3435,6 +3630,8 @@ def main() -> None:
         (line,) = [ln for ln in outs[group].splitlines() if ln.startswith("launches ")]
         by_path.update(json.loads(line[len("launches "):]))
         for ln in outs[group].splitlines():
+            if ln.startswith("e3d_launches "):
+                state.setdefault("e3d_runs", {}).update(json.loads(ln[len("e3d_launches "):]))
             if ln.startswith("adjoint_launches "):
                 state["adjoint_launches"] = int(ln.split()[1])
             if ln.startswith("ended "):
@@ -3455,6 +3652,14 @@ def main() -> None:
         "launches_by_path": by_path,
         "adjoint_launches": state["adjoint_launches"],
         **state["kernel"],
+    }, {
+        "name": "e3d",
+        "route": "cuda",
+        "source": "neklab_tpu_torch/csrc/e3d.cu",
+        "replaces": "none: the reference's 3-D E (neklab_tpu/models/stokes.py:80) is plain XLA",
+        "launches": sum(state["e3d_runs"].values()),
+        "launches_by_path": state["e3d_runs"],
+        **state["e3d"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

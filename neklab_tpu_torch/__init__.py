@@ -8,8 +8,9 @@ wavenumber-projected propagator, periodic orbits with their Floquet
 multipliers, and OTD mode evolution on torch tensors, on meshes the
 package builds (box, annulus, backward-facing step) or reads (Nek5000
 `.re2`, genbox `.box`), with the pressure preconditioner at any mesh size
-and the 2-D local Helmholtz apply as a hand-written CUDA kernel for Hopper
-(`ops/helmholtz_kernel.py`, `csrc/helmholtz2d.cu`). The JAX package
+the 2-D local Helmholtz apply as a hand-written CUDA kernel for Hopper
+(`ops/helmholtz_kernel.py`, `csrc/helmholtz2d.cu`), and the 3-D pressure
+operator E as two (`ops/e_kernel.py`, `csrc/e3d.cu`). The JAX package
 `neklab_tpu` is the reference the port is tested against; this package
 imports torch, numpy and scipy, never jax.
 

@@ -34,7 +34,7 @@ from typing import Callable
 import torch
 
 from ..mesh.core import SemMesh
-from ..ops import sem
+from ..ops import e_kernel, sem
 from ..parallel.sharding import global_sum
 from ..utils import timers
 from . import stokes
@@ -257,7 +257,9 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     host's clock on the CPU) less its solves' `CGTiming.span_s`: the
     explicit terms, right-hand sides, pressure correction and lag shifts,
     as the device saw them; while a profiler records, each step is the
-    range `neklab.step` instead.
+    range `neklab.step` instead. A traced call on the card also appends to
+    stats["neklab.e3d"] the E applies the 3-D kernels ran in it
+    (`e_kernel.log_runs`).
 
     recycle: if > 0, each pressure solve after the BDF ramp is deflated
     against the last `recycle` solutions (Nek5000's residual projection;
@@ -279,6 +281,7 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     n_ramp = min(fc.torder - 1, nsteps)
     pbasis = None
     traced = timers.traced(stats)
+    e3d_mark = e_kernel.runs_mark(mesh.device) if traced else None
     clock = timers.Clock(mesh.device) if traced and not timers.profiling() else None
     spans = []  # a timed call's (stamp before, stamp after, seconds of its solves) per step
     for k in range(nsteps):
@@ -303,6 +306,7 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
         clock.wait(spans[-1][1])
         stats.setdefault("neklab.step", []).extend(
             clock.seconds(a, b) - solves for a, b, solves in spans)
+    e_kernel.log_runs(stats, e3d_mark)
     return state.u, state.theta
 
 
@@ -398,11 +402,13 @@ class AdjointPropagator:
         the call on the card's stream (CUDA events around it; the host's
         clock on the CPU) less its solves' spans, over the time steps: the
         autograd engine and the tape's own kernels, per time step; while a
-        profiler records, the call is the range `neklab.adjoint` instead.
-        An untraced call records no event."""
+        profiler records, the call is the range `neklab.adjoint` instead;
+        on the card it appends to stats["neklab.e3d"] the E applies the 3-D
+        kernels ran in it. An untraced call records no event."""
         log = self._log
         log.clear()
         log.traced = timers.traced(stats)
+        e3d_mark = e_kernel.runs_mark(self.mesh.device) if log.traced else None
         try:
             if not log.traced:
                 out = b_adjoint(self.mesh, self._inputs, self._outputs, v_u, v_theta)
@@ -425,6 +431,7 @@ class AdjointPropagator:
         if stats is not None:
             for key, counts in log.items():
                 stats.setdefault(key, []).extend(counts)
+            e_kernel.log_runs(stats, e3d_mark)
         return out
 
 

@@ -8,7 +8,9 @@ go through the div/grad pair
   grad_weak_t(p)  = div_weak^T p    : the (p, div v) momentum term
 
 and the fractional-step operator E = div ((dt/g0) Binv_masked dssum(grad^T .))
-is symmetric positive semi-definite by construction.
+is symmetric positive semi-definite by construction. On the card, E on a
+3-D mesh of one process runs as two CUDA kernels (`ops/e_kernel.py`);
+`e_op_plain`, the torch chain, is their twin and E everywhere else.
 
 Batching: a pressure field may carry leading axes, [*lead, pts2..., nel];
 vector fields put their component axis first, [ndim, *lead, pts..., nel].
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..mesh.core import SemMesh
-from ..ops import sem
+from ..ops import e_kernel, sem
 from ..ops.tensor import grad_rst, grad_rst_t, interp_nd, interp_nd_t
 
 
@@ -60,7 +62,18 @@ def pressure_correct_velocity(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> to
 
 
 def e_op(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> torch.Tensor:
-    """The SPD pressure Schur-complement approximation E dp."""
+    """The SPD pressure Schur-complement approximation E dp: the CUDA
+    kernels where `e_kernel.applies` (a CUDA tensor, a 3-D mesh of one
+    process; `e_kernel.e3d` raises for what they cannot take), else
+    `e_op_plain`."""
+    if e_kernel.applies(mesh, dp):
+        return e_kernel.e3d(mesh, dp, dt_over_g0)
+    return e_op_plain(mesh, dp, dt_over_g0)
+
+
+def e_op_plain(mesh: SemMesh, dp: torch.Tensor, dt_over_g0) -> torch.Tensor:
+    """E dp as the plain torch chain: 2-D meshes, CPU tensors, partitioned
+    meshes, and the twin the kernels are held to."""
     return div_weak(mesh, pressure_correct_velocity(mesh, dp, dt_over_g0))
 
 

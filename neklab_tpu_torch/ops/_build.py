@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -92,5 +94,62 @@ def load() -> ctypes.CDLL:
             # counter and the stream (pointers as c_void_p)
             fn.argtypes = [ptr] * 7 + [i32, i32, i32, f64, f64, ptr, ptr]
             fn.restype = ctypes.c_int
+        for name in ("e3d_f32", "e3d_f64"):
+            fn = getattr(lib, name)
+            # p, bm2, rx, binv, d, j12, node, table, g, out; batch, nel, n; c;
+            # the run counter and the stream
+            fn.argtypes = [ptr] * 10 + [i32, i32, i32, f64, ptr, ptr]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+class RunCounter:
+    """A kernel's runs on each card, counted by the kernel itself in a 64-bit
+    counter in device memory, so that a run replayed from a CUDA graph
+    counts like a launch from the host. The counter of a card is made at the
+    kernel's first launch there, outside any graph capture, and never freed:
+    captured launches keep its address."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._runs: dict[int, torch.Tensor] = {}
+
+    @staticmethod
+    def _index(device: torch.device) -> int:
+        return device.index if device.index is not None else torch.cuda.current_device()
+
+    def tensor(self, device: torch.device) -> torch.Tensor:
+        """The int64 [1] counter of a card, made here at its first use."""
+        index = self._index(device)
+        runs = self._runs.get(index)
+        if runs is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{self.name}: the run counter of cuda:{index} would be made "
+                                   "inside a graph capture; launch the kernel once before "
+                                   "capturing")
+            runs = self._runs[index] = torch.zeros(1, dtype=torch.int64,
+                                                   device=torch.device("cuda", index))
+        return runs
+
+    def existing(self, device) -> torch.Tensor | None:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        return self._runs.get(self._index(device))
+
+    def read(self, device) -> int:
+        """Runs on `device` since its counter was made or last reset, graph
+        replays included. Synchronizes the card; 0 for the CPU and for a
+        card the kernel never ran on."""
+        runs = self.existing(device)
+        if runs is None:
+            return 0
+        torch.cuda.synchronize(runs.device)
+        return int(runs.item())
+
+    def reset(self, device) -> None:
+        """Zero the counter of `device`."""
+        runs = self.existing(device)
+        if runs is not None:
+            runs.zero_()

@@ -23,14 +23,12 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .tensor import apply_r, apply_s, linear
 
 NMAX = 12  # largest n = order + 1 the kernel takes
 
-# device index -> int64 [1] run counter of the kernel on that card. Made at
-# the first launch on the card, outside any graph capture, and never freed:
-# captured launches keep its address.
-_RUNS: dict[int, torch.Tensor] = {}
+_RUNS = _build.RunCounter("helmholtz2d")
 
 
 def helmholtz2d_plain(u, d, g00, g01, g11, bm1, h1, h2):
@@ -65,11 +63,9 @@ def helmholtz2d(u, d, g00, g01, g11, bm1, h1, h2):
 
 def _launch(u, d, g00, g01, g11, bm1, h1, h2):
     """One run of the kernel on checked CUDA tensors, into a fresh output."""
-    from . import _build
-
     n, nel = d.shape[0], u.shape[-1]
     batch = u.numel() // (n * n * nel)
-    runs = _counter(u.device)
+    runs = _RUNS.tensor(u.device)
     out = torch.empty_like(u)
     lib = _build.load()
     fn = lib.helmholtz2d_f32 if u.dtype == torch.float32 else lib.helmholtz2d_f64
@@ -83,44 +79,16 @@ def _launch(u, d, g00, g01, g11, bm1, h1, h2):
     return out
 
 
-def _index(device: torch.device) -> int:
-    return device.index if device.index is not None else torch.cuda.current_device()
-
-
-def _counter(device: torch.device) -> torch.Tensor:
-    index = _index(device)
-    runs = _RUNS.get(index)
-    if runs is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("helmholtz2d: the run counter of cuda:%d would be made inside a "
-                               "graph capture; launch the kernel once before capturing" % index)
-        runs = _RUNS[index] = torch.zeros(1, dtype=torch.int64, device=torch.device("cuda", index))
-    return runs
-
-
-def _existing_counter(device) -> torch.Tensor | None:
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    return _RUNS.get(_index(device))
-
-
 def launches(device) -> int:
     """Kernel runs on `device` since its counter was made or last reset,
     graph replays included. Synchronizes the card; 0 for the CPU and for a
     card the kernel never ran on."""
-    runs = _existing_counter(device)
-    if runs is None:
-        return 0
-    torch.cuda.synchronize(runs.device)
-    return int(runs.item())
+    return _RUNS.read(device)
 
 
 def reset_launches(device) -> None:
     """Zero the run counter of `device`."""
-    runs = _existing_counter(device)
-    if runs is not None:
-        runs.zero_()
+    _RUNS.reset(device)
 
 
 def _check(u, d, g00, g01, g11, bm1) -> None:

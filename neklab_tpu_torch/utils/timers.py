@@ -33,6 +33,10 @@ names of their profiler ranges:
                                outside its solves
     stats["neklab.adjoint"]    seconds per time step of each exact-adjoint
                                call outside its transposed solves
+    stats["neklab.e3d"]        the E applies the 3-D pressure kernels ran in
+                               each propagate and exact-adjoint call on the
+                               card (`ops/e_kernel.py`; their device counter,
+                               read once the call's last stamp has passed)
 
 While a profiler records, a traced call opens the ranges `neklab.step`,
 `neklab.cg.<kind>`, `neklab.cg.read` (each residual read) and
