@@ -168,6 +168,7 @@ def step_lin(
     source=None,
     emap=None,
     pbasis=None,
+    scalar_span=None,
 ) -> PertState:
     """One linearized BDF(order)/EXT(order) step (homogeneous BCs).
 
@@ -184,7 +185,8 @@ def step_lin(
     (`navier_stokes.init_projection_basis`), threaded through and
     returned: -> (state', pbasis'). Its update is nonlinear in the data, so
     an adjoint records steps without one (both maps agree to the solvers'
-    tolerance)."""
+    tolerance). scalar_span: an optional `timers.Spans` that times the
+    scalar block, from the scalars' extrapolation to their stack."""
     fc = cfg.flow
     dt = fc.dt
     g0, betas = _BDF[order]
@@ -215,13 +217,14 @@ def step_lin(
     p_new = pstar + dp
 
     if cfg.nscal:
-        ntstar = alphas[0] * n_t + alphas[1] * state.ntlag[0] + alphas[2] * state.ntlag[1]
-        tbsum = betas[0] * state.theta + betas[1] * state.tlag[0] + betas[2] * state.tlag[1]
-        comps = []
-        for i in range(cfg.nscal):
-            rhs_t = mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i]
-            comps.append(tsolves[i](rhs_t, torch.zeros_like(state.theta[i]), stats=stats))
-        theta_new = torch.stack(comps)
+        with timers.NULL if scalar_span is None else scalar_span():
+            ntstar = alphas[0] * n_t + alphas[1] * state.ntlag[0] + alphas[2] * state.ntlag[1]
+            tbsum = betas[0] * state.theta + betas[1] * state.tlag[0] + betas[2] * state.tlag[1]
+            comps = []
+            for i in range(cfg.nscal):
+                rhs_t = mesh.bm1 * tbsum[i] * (1.0 / dt) + ntstar[i]
+                comps.append(tsolves[i](rhs_t, torch.zeros_like(state.theta[i]), stats=stats))
+            theta_new = torch.stack(comps)
     else:
         theta_new = state.theta
 
@@ -256,8 +259,10 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     of the step on the card's stream (CUDA events around `step_lin`; the
     host's clock on the CPU) less its solves' `CGTiming.span_s`: the
     explicit terms, right-hand sides, pressure correction and lag shifts,
-    as the device saw them; while a profiler records, each step is the
-    range `neklab.step` instead. A traced call on the card also appends to
+    as the device saw them, and, with scalars, to stats["neklab.scalar"]
+    the same of the step's scalar block (a part of the step's); while a
+    profiler records, each step is the range `neklab.step` and its scalar
+    block `neklab.scalar` instead. A traced call on the card also appends to
     stats["neklab.e3d"] the E applies the 3-D kernels ran in it
     (`e_kernel.log_runs`).
 
@@ -283,29 +288,22 @@ def propagate(mesh: SemMesh, cfg: LinConfig, base_u, base_theta, u0, theta0, nst
     traced = timers.traced(stats)
     e3d_mark = e_kernel.runs_mark(mesh.device) if traced else None
     clock = timers.Clock(mesh.device) if traced and not timers.profiling() else None
-    spans = []  # a timed call's (stamp before, stamp after, seconds of its solves) per step
+    steps = timers.Spans("neklab.step", clock, stats) if traced else None
+    scalars = timers.Spans("neklab.scalar", clock, stats) if traced and fc.nscal else None
     for k in range(nsteps):
         order = min(k + 1, tmax)
         vsolve, tsolves = vsolves[order]
         if recycle and k == n_ramp:
             pbasis = ns.init_projection_basis(mesh, recycle)
-        args = (mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve, tsolves)
-        if clock is not None:
-            marks = timers.solve_marks(stats)
-            before = clock.stamp()
-            state = step_lin(*args, conv_cache=ccache, stats=stats, pbasis=pbasis)
-            spans.append((before, clock.stamp(), timers.solve_seconds(stats, marks)))
-        elif traced:
-            with timers.profiler_range("neklab.step"):
-                state = step_lin(*args, conv_cache=ccache, stats=stats, pbasis=pbasis)
-        else:
-            state = step_lin(*args, conv_cache=ccache, stats=stats, pbasis=pbasis)
+        with timers.NULL if steps is None else steps():
+            state = step_lin(mesh, cfg, state, base_u, base_theta, order, psolves[order], vsolve,
+                             tsolves, conv_cache=ccache, stats=stats, pbasis=pbasis,
+                             scalar_span=scalars)
         if pbasis is not None:
             state, pbasis = state
-    if spans:
-        clock.wait(spans[-1][1])
-        stats.setdefault("neklab.step", []).extend(
-            clock.seconds(a, b) - solves for a, b, solves in spans)
+    for spans in (scalars, steps):
+        if spans is not None:
+            spans.close()
     e_kernel.log_runs(stats, e3d_mark)
     return state.u, state.theta
 

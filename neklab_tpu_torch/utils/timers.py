@@ -31,6 +31,10 @@ names of their profiler ranges:
                                the counts)
     stats["neklab.step"]       seconds of each time step of `propagate`
                                outside its solves
+    stats["neklab.scalar"]     seconds of each time step's scalar block
+                               (`step_lin`, with scalars: the extrapolation,
+                               right-hand sides and stack) outside its
+                               solves; a part of "neklab.step"
     stats["neklab.adjoint"]    seconds per time step of each exact-adjoint
                                call outside its transposed solves
     stats["neklab.e3d"]        the E applies the 3-D pressure kernels ran in
@@ -39,8 +43,8 @@ names of their profiler ranges:
                                read once the call's last stamp has passed)
 
 While a profiler records, a traced call opens the ranges `neklab.step`,
-`neklab.cg.<kind>`, `neklab.cg.read` (each residual read) and
-`neklab.adjoint` instead, and takes no stamp: the profile times that call,
+`neklab.scalar`, `neklab.cg.<kind>`, `neklab.cg.read` (each residual read)
+and `neklab.adjoint` instead, and takes no stamp: the profile times that call,
 and the events' own runtime records would crowd the profiler's buffers (a
 device-only profile of a transient-growth Krylov step once read 29 % less
 busy time with them, on an H100). An untraced call records no event and
@@ -56,7 +60,7 @@ from contextlib import contextmanager, nullcontext
 import torch
 from torch.autograd import profiler as _profiler
 
-_NULL = nullcontext()
+NULL = nullcontext()  # a context that does nothing, for an untraced part
 # torch's light range (a C++ context, ~1 us; `record_function` takes ~15 us a
 # range, which a profiled step would pay at every residual read)
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None) or _profiler.record_function
@@ -71,7 +75,7 @@ def profiling() -> bool:
 def profiler_range(name: str):
     """A `torch.profiler` range named `name` while a profiler records (its
     host activity holds the range), else a context that does nothing."""
-    return _RANGE(name) if _profiler._is_profiler_enabled else _NULL
+    return _RANGE(name) if _profiler._is_profiler_enabled else NULL
 
 
 def traced(stats) -> bool:
@@ -141,6 +145,36 @@ def solve_seconds(stats: dict, since: dict | None = None) -> float:
 def solve_marks(stats: dict) -> dict:
     """The number of traced solves in stats so far, by key."""
     return {key: len(v) for key, v in stats.items() if key.startswith("neklab.cg.")}
+
+
+class Spans:
+    """One part of a traced call, timed each time it runs, less the traced
+    solves inside it: `with spans():` around the part stamps it on `clock`;
+    `close()` waits for the last stamp and appends each run's seconds to
+    stats[name]. With no clock (a profiler records) the part is the range
+    `name` instead and takes no stamp."""
+
+    def __init__(self, name: str, clock: Clock | None, stats: dict):
+        self.name, self.clock, self.stats = name, clock, stats
+        self._runs: list = []  # (stamp before, stamp after, seconds of its solves)
+
+    @contextmanager
+    def __call__(self):
+        if self.clock is None:
+            with profiler_range(self.name):
+                yield
+            return
+        marks = solve_marks(self.stats)
+        before = self.clock.stamp()
+        yield
+        self._runs.append((before, self.clock.stamp(), solve_seconds(self.stats, marks)))
+
+    def close(self) -> None:
+        if self._runs:
+            self.clock.wait(self._runs[-1][1])
+            self.stats.setdefault(self.name, []).extend(
+                self.clock.seconds(a, b) - solves for a, b, solves in self._runs)
+            self._runs = []
 
 
 class Timers:

@@ -12,7 +12,9 @@ projection (`recycle=`) around the graphed pressure CG: a recycled
 propagator, the recycled exact Jacobian of a fixed-point system, and
 recycled steps of a one-rank NCCL group; and the Boussinesq family (nscal = 1):
 a forced scalar `advance`, `propagate` and its adjoint with both linear
-couplings, the B-adjoint identity, and `advance_adaptive` with its rebuilds;
+couplings, the B-adjoint identity, and `advance_adaptive` with its rebuilds,
+then in 3-D: `propagate` (traced) and its adjoint, and the Rayleigh-Benard
+onset of a periodic layer against the 2-D box's;
 and the spans of a traced call (`stats=`): CUDA events inside the wall time,
 no program range in a profile of the device's activity alone.
 
@@ -1068,6 +1070,108 @@ def test_advance_adaptive_matches_cpu_and_frees_its_solvers(card):
     for k in ("u", "p", "theta"):
         assert rel(getattr(out[card], k), getattr(out["cpu"], k)) <= 1e-10, k
     assert 0 < mem["after"] < mem["one_set"], (mem, len(builds[card]))
+
+
+# the Boussinesq family in 3-D: neklab's rayBen (Ra 1900, Pr 1, thermal units)
+# in a laterally periodic layer, the temperature held on both walls
+RB_RA = 1900.0
+RB_LC = 2 * np.pi / 3.11632  # one critical wavelength, k_c = 3.11632
+RB_BC = {"x-": "P", "x+": "P", "y-": "W", "y+": "W", "z-": "P", "z+": "P"}
+RB_TEMP = {"y-": "t", "y+": "t"}
+
+
+def _rb_config(ndim, tol):
+    from neklab_tpu_torch.models.linearized import LinConfig
+
+    def buoyancy(m, u, th):
+        comps = [torch.zeros_like(th[0])] * ndim
+        comps[1] = RB_RA * th[0]
+        return torch.stack(comps)
+
+    return LinConfig(flow=ns.FlowConfig(viscosity=1.0, dt=1e-3, nscal=1, conductivity=(1.0,),
+                                        vtol=tol, ptol=tol, ttol=tol), lin_forcing_fn=buoyancy)
+
+
+def test_scalar3d_propagate_and_adjoint_match_cpu(card):
+    """A 3-D Boussinesq `propagate` (6 steps, traced) and its recorded
+    adjoint on a (2, 2, 2) layer at order 4, about a sheared base flow and a
+    temperature varying in x, y and z, on the card (graphed scalar CGs, the
+    E kernel pair) and on the CPU, f64: rel 1e-10 forward, 1e-9 absolute
+    through the adjoint (as the 2-D test above), the same solves within one
+    CG iteration. The traced call on the card fills `neklab.cg.scalar` (one
+    `CGTiming` a scalar solve, its iterations those of stats["scalar"]) and
+    `neklab.scalar` (one entry a time step, each within its step's)."""
+    from neklab_tpu_torch.models.linearized import make_adjoint_propagator, propagate
+    from neklab_tpu_torch.models.solvers import CGTiming
+
+    box = dict(nels=(2, 2, 2), lims=((0, 2.0), (0, 1.0), (0, 2.0)), bc=RB_BC, order=4,
+               bc_temp=RB_TEMP)
+    cfg, nsteps = _rb_config(3, 1e-12), 6
+    rng = np.random.default_rng(19)
+    out, stats, data = {}, {}, None
+    for dev in (card, "cpu"):
+        m = box_mesh(**box, device=dev)
+        x, y, z = m.x
+        bu = torch.stack([4 * y * (1 - y), 0 * y, 0.3 * torch.sin(np.pi * x) * y * (1 - y)])
+        bth = (1 - y + 0.1 * torch.sin(np.pi * x) * torch.cos(np.pi * z) * y * (1 - y))[None]
+        shape = tuple(m.bm1.shape)
+        if data is None:
+            data = [rng.standard_normal(s) for s in ((3,) + shape, (1,) + shape) * 2]
+        f = [torch.as_tensor(d, device=dev) for d in data]
+        u0, t0 = m.vmask * sem.dsavg(m, f[0]), m.tmask * sem.dsavg(m, f[1])
+        v0, s0 = m.vmask * sem.dsavg(m, f[2]), m.tmask * sem.dsavg(m, f[3])
+        stats[dev] = {}
+        mu, mth = propagate(m, cfg, bu, bth, u0, t0, nsteps, stats=stats[dev])
+        adj = make_adjoint_propagator(m, cfg, bu, bth, nsteps)
+        au, ath = adj(v0, s0)
+        out[dev] = (mu, mth, au, ath)
+    for k, (got, want) in enumerate(zip(out[card], out["cpu"])):
+        assert float(want.abs().max()) > 1e-3, k
+        if k < 2:
+            assert rel(got, want) <= 1e-10, k
+        else:
+            assert float((got.cpu() - want).abs().max()) <= 1e-9, k
+    for key, counts in cg_counts(stats["cpu"]).items():
+        assert len(stats[card][key]) == len(counts) and min(counts) > 0, key
+        assert max(abs(a - b) for a, b in zip(stats[card][key], counts)) <= 1, key
+    s = stats[card]
+    assert all(isinstance(t, CGTiming) for t in s["neklab.cg.scalar"])
+    assert [t.iters for t in s["neklab.cg.scalar"]] == s["scalar"]
+    assert len(s["neklab.scalar"]) == len(s["neklab.step"]) == nsteps
+    assert all(0 <= a <= b for a, b in zip(s["neklab.scalar"], s["neklab.step"]))
+
+
+def _rb_sigma(dev, ndim, order):
+    """The leading growth rate of the conduction state at Ra = RB_RA in a
+    box of one critical wavelength a periodic direction, (3, 3[, 3])
+    elements, inner solves at 1e-12."""
+    from neklab_tpu_torch.analysis import linear_stability_analysis_fixed_point
+    from neklab_tpu_torch.linops.exponential_propagator import ExponentialPropagator
+    from neklab_tpu_torch.vectors import flow_vector_space
+
+    faces = ("x-", "x+", "y-", "y+", "z-", "z+")[: 2 * ndim]
+    lims = ((0, RB_LC), (0, 1.0), (0, RB_LC))[:ndim]
+    m = box_mesh(nels=(3,) * ndim, lims=lims, bc={f: RB_BC[f] for f in faces}, order=order,
+                 bc_temp=RB_TEMP, device=dev)
+    base_u = torch.zeros((ndim,) + tuple(m.bm1.shape), dtype=torch.float64, device=dev)
+    prop = ExponentialPropagator(m, _rb_config(ndim, 1e-12), base_u, (1 - m.x[1])[None],
+                                 tau=0.02, dt=1e-3)
+    res = linear_stability_analysis_fixed_point(prop, flow_vector_space(m, 1), kdim=24, nev=2,
+                                                tol=1e-10, maxiter=6, seed=5)
+    return complex(res.eigvals[0])
+
+
+def test_rayleigh_benard_3d_onset_equals_2d(card):
+    """The 3-D onset: in a lambda_c x 1 x lambda_c periodic layer at Ra =
+    1900 the leading eigenvalue (double: rolls along x and along z) is the
+    2-D box's sigma(1900) at the same (3, 3) elements and order in x-y. The
+    3-D discretisation restricted to z-independent fields is the 2-D one,
+    so they agree to the solvers' and the eigensolve's tolerance: 1e-8
+    (the Ritz values' residual tolerance 1e-10 over tau = 0.02)."""
+    lam3 = _rb_sigma(card, 3, 6)
+    lam2 = _rb_sigma(card, 2, 6)
+    assert lam2.real > 0 and abs(lam2.imag) < 1e-8  # supercritical, stationary rolls
+    assert abs(lam3 - lam2) <= 1e-8, (lam3, lam2)
 
 
 # ---------------------------------------------------------------------------

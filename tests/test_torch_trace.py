@@ -152,9 +152,11 @@ def test_traced_call_appends_an_entry_per_solve_and_step(setup, name):
         assert extra == set() and len(stats[kinds[0]]) == 1
     elif name.startswith("propagate-"):
         nsteps = int(name[10:])
-        assert extra == {"neklab.step"}
-        assert len(stats["neklab.step"]) == nsteps
+        assert extra == {"neklab.step", "neklab.scalar"}
+        assert len(stats["neklab.step"]) == len(stats["neklab.scalar"]) == nsteps
         assert all(len(stats[k]) == nsteps for k in kinds)
+        # the scalar block is a part of its step, its solve a part of the step's
+        assert all(a <= b for a, b in zip(stats["neklab.scalar"], stats["neklab.step"]))
     else:
         assert extra == {"neklab.adjoint"} and len(stats["neklab.adjoint"]) == 1
         assert all(len(stats[k]) == prop.nsteps for k in kinds)
@@ -201,6 +203,47 @@ def test_profiler_ranges_nest_step_solve_read(setup, name):
     assert all(any(_inside(s, o) for o in by[outer]) for s in solves)
     assert by["neklab.cg.read"]
     assert all(any(_inside(r, s) for s in solves) for r in by["neklab.cg.read"])
+    if outer == "neklab.step":
+        # each step's scalar block, around its scalar solve
+        assert len(by["neklab.scalar"]) == 3
+        assert all(any(_inside(b, o) for o in by[outer]) for b in by["neklab.scalar"])
+        assert all(any(_inside(s, b) for b in by["neklab.scalar"])
+                   for s in by["neklab.cg.scalar"])
+
+
+BOX3 = dict(nels=(2, 2, 2), lims=((0, 2.0), (0, 1.0), (0, 2.0)),
+            bc={"x-": "P", "x+": "P", "y-": "W", "y+": "W", "z-": "P", "z+": "P"}, order=3,
+            bc_temp={"y-": "t", "y+": "t"})
+
+
+def test_traced_3d_scalar_propagate_times_its_scalar_block(monkeypatch):
+    """A 3-D Boussinesq `propagate` (nscal 1, the buoyancy, the temperature
+    held on the walls): traced, one "neklab.scalar" entry a time step, each
+    within its step's; untraced, the same bits and no stamp."""
+    mesh = box_mesh(**BOX3, device="cpu")
+    shape = tuple(mesh.bm1.shape)
+    cfg = lin.LinConfig(flow=ns.FlowConfig(viscosity=1.0, dt=1e-3, nscal=1, conductivity=(1.0,),
+                                           vtol=1e-10, ptol=1e-10, ttol=1e-10),
+                        lin_forcing_fn=lambda m, u, th: torch.stack(
+                            [0 * th[0], 1900.0 * th[0], 0 * th[0]]))
+    rng = np.random.default_rng(6)
+    u = torch.as_tensor(rng.standard_normal((3,) + shape)) * mesh.vmask
+    th = torch.as_tensor(rng.standard_normal((1,) + shape)) * mesh.tmask
+    base_u, base_t = torch.zeros((3,) + shape, dtype=torch.float64), (1 - mesh.x[1])[None]
+    run = lambda stats: lin.propagate(mesh, cfg, base_u, base_t, u, th, 4, stats=stats)
+    stats = {}
+    traced = run(stats)
+    assert len(stats["neklab.scalar"]) == len(stats["neklab.step"]) == 4
+    assert len(stats["neklab.cg.scalar"]) == 4
+    assert all(0 <= a <= b for a, b in zip(stats["neklab.scalar"], stats["neklab.step"]))
+
+    def refuse(self):
+        raise AssertionError("an untraced call took a stamp")
+
+    monkeypatch.setattr(timers.Clock, "stamp", refuse)
+    plain = run(None)
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
 
 
 def test_timers_scope_is_a_range_and_the_report_keeps_its_layout():

@@ -17,7 +17,8 @@ one JSON line per call name:
     program's own timings: the CG iterations (`iter`), the device's gaps
     between them (`gap`), the rest of the solves' spans, set-up and final
     read (`setup`), and the step outside its solves (`other`:
-    `neklab.step`, or `neklab.adjoint` for rmatvec); `read_us` the host's
+    `neklab.step`, or `neklab.adjoint` for rmatvec), with scalars the
+    scalar block's part of it (`scalar_other`: `neklab.scalar`); `read_us` the host's
     time blocked in one residual read;
   * `solves`: per kind, the CG iterations a time step and the medians per
     solve of an iteration's device time and of the gap before it (us);
@@ -49,6 +50,8 @@ def _parts(stats: dict, nsteps: int, name: str) -> dict:
     other_s = sum(other) if name == "matvec" else other[0] * nsteps
     out = dict(iter=sum(t.iter_s for t in cg), gap=sum(t.gap_s for t in cg),
                setup=sum(t.span_s - t.iter_s - t.gap_s for t in cg), other=other_s)
+    if stats.get("neklab.scalar"):
+        out["scalar_other"] = sum(stats["neklab.scalar"])  # a part of `other`
     out = {k: v / nsteps for k, v in out.items()}
     out["read_us"] = 1e6 * sum(t.read_s for t in cg) / sum(t.iters + 1 for t in cg)
     # what the readers report: medians per solve and per time step
@@ -117,14 +120,16 @@ def measure(cell: str, device, pairs: int, seed: int, overrides: dict | None = N
         plain = 1e3 * statistics.median(walls[False]) / nsteps
         timed = 1e3 * statistics.median(walls[True]) / nsteps
         med = {k: 1e3 * statistics.median(p[k] for p in parts)
-               for k in ("iter", "gap", "setup", "other", "metric")}
+               for k in ("iter", "gap", "setup", "other", "metric", "scalar_other")
+               if k in parts[0]}
         total = med["iter"] + med["gap"] + med["setup"] + med["other"]
         kinds = {kind: {k: statistics.median(p[kind][k] for p in parts) for k in parts[0][kind]}
                  for kind in ("pressure", "helmholtz", "scalar") if kind in parts[0]}
         lines.append(dict(
             cell=cell, call=name, time_steps=nsteps, untraced_ms=plain, traced_ms=timed,
             traced_over_untraced=timed / plain,
-            parts_ms={k: med[k] for k in ("iter", "gap", "setup", "other")},
+            parts_ms={k: med[k] for k in ("iter", "gap", "setup", "other", "scalar_other")
+                      if k in med},
             read_us=statistics.median(p["read_us"] for p in parts), solves=kinds,
             closure_sum=total / plain, closure_metrics=med["metric"] / plain,
             walls_s={"untraced": walls[False], "traced": walls[True]},
